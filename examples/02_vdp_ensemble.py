@@ -1,9 +1,7 @@
 """The north-star workload: a 4096-member Van der Pol ensemble as one
 XLA program (BASELINE.json).  Each member carries its own adaptive step
-size; the whole adaptive integration compiles to a single kernel.
-
-On a TPU chip this runs ~400x faster than looping scipy+extensisq over
-the members on one CPU core (see bench.py for the measured comparison).
+size; the whole adaptive integration compiles to one ``while_loop``
+program.  ``bench.py`` times the same solve on the GPU.
 """
 import os as _os
 import sys as _sys

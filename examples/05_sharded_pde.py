@@ -3,7 +3,7 @@
 A 2-D Brusselator reaction-diffusion system, semi-discretized to a big
 state vector and sharded across all available devices.  The stencil RHS
 is plain jnp shift ops, so GSPMD partitions it automatically: neighbor
-slices become halo exchanges over ICI, and the solver's error-norm
+slices become halo exchanges, and the solver's error-norm
 reductions become all-reduces.
 
 Run with 8 virtual devices on CPU:

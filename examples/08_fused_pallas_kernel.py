@@ -1,33 +1,21 @@
-"""The fused Pallas kernel: a whole adaptive ensemble solve in one
-TPU kernel.
+"""The fused Pallas kernel: a whole adaptive ensemble solve in one GPU
+kernel.
 
-``ops.solve_fused_erk`` keeps the entire integration — stage
-evaluations, embedded error control, the accept/reject time loop —
-inside a single ``pallas_call``, with ensemble members laid out on the
-VPU's (8, 128) tiles and all state resident in VMEM.  Nothing touches
-HBM between steps, and there is no per-iteration kernel dispatch, which
-is what bounds the XLA device path.
+``ops.solve_fused_erk`` keeps the entire integration — the starting
+step, stage evaluations, embedded error control, the accept/reject time
+loop — inside a single ``pallas_call`` (Triton route).  One program
+integrates a block of members; each state component is a vector over
+the block.  There is no per-step kernel launch and no loop predicate
+read by the host, which is what bounds the XLA device path for small
+systems.
 
-Tradeoffs (see the module docstring of ops/fused_erk.py): float32
-arithmetic (Mosaic has no f64; the compensated mode reaches official
-tolerances) and t_eval-snapshot output instead of a dense-output
-object.  The initial step comes from the in-kernel Watts h_start,
-t_eval/events/max_step/params all work in-kernel.  Use it as the
-fast production mode; use solve()/solve_ensemble for full float64
-and the complete feature surface.
+The RHS returns a tuple of components instead of ``jnp.stack`` (Triton
+lowers no concatenation along a leading axis); the same function runs
+on the XLA path.  In float64 the kernel takes exactly the steps
+``solve_ensemble`` takes.
 
-On one TPU v5e chip the 4096-member Van der Pol ensemble below runs in
-~29 ms vs ~45 ms for the f32 XLA path and ~59 ms for the f64 XLA path.
-
-The same architecture covers every solver family (`extensisq_tpu.ops`):
-``solve_fused_rkn`` (2nd-order systems), ``solve_fused_rkc``
-(stabilized PDE grids, double-single Chebyshev recurrence),
-``solve_fused_esdirk`` (stiff/DAE ensembles with in-kernel batched
-Newton — Robertson to t=1e6 in 172 steps), and ``solve_fused_adams``
-(variable-order multistep: a 3.6M-step Van der Pol mu=1e3 horizon runs
-at ~2 us per step).  An in-kernel while iteration costs ~100x less
-than a dispatched XLA device-loop iteration, so the fused kernels
-dominate on long sequential horizons.
+    python examples/08_fused_pallas_kernel.py              # on a GPU
+    python examples/08_fused_pallas_kernel.py --interpret  # anywhere
 """
 import os as _os
 import sys as _sys
@@ -41,76 +29,49 @@ import jax.numpy as jnp
 from extensisq_tpu import solve_ensemble, BS5
 from extensisq_tpu.ops import solve_fused_erk
 
+interpret = "--interpret" in _sys.argv
+
 
 def vdp(t, y):
-    return jnp.stack([y[1], 3.0 * (1.0 - y[0] ** 2) * y[1] - y[0]],
-                     axis=0)
-
-
-B = 4096
-rng = np.random.RandomState(0)
-Y0 = jnp.asarray(np.stack([2.0 + 0.1 * rng.randn(B), np.zeros(B)],
-                          axis=1))
-
-# fused kernel (f32); interpret mode makes it runnable off-TPU too
-interp = jax.default_backend() != "tpu"
-yf, status, nsteps, nfev = solve_fused_erk(
-    vdp, (0.0, 10.0), Y0, method=BS5, rtol=1e-4, atol=1e-6,
-    interpret=interp)
-print("fused:", yf.shape, "all ok:", bool(jnp.all(status == 1)),
-      "mean steps:", float(nsteps.mean()))
-
-# cross-check against the f64 XLA device path at the same tolerance
-out = jax.jit(lambda Y: solve_ensemble(vdp, (0.0, 10.0), Y, method=BS5,
-                                       rtol=1e-4, atol=1e-6))(Y0)
-err = float(jnp.max(jnp.abs(yf - out.y)))
-print(f"max |fused - xla_f64| = {err:.2e} (tolerance-level agreement)")
-
-if jax.default_backend() == "tpu":
-    fused = jax.jit(lambda Y: solve_fused_erk(
-        vdp, (0.0, 10.0), Y, method=BS5, rtol=1e-4, atol=1e-6)[0])
-    xla64 = jax.jit(lambda Y: solve_ensemble(
-        vdp, (0.0, 10.0), Y, method=BS5, rtol=1e-4, atol=1e-6).y)
-    for name, run in (("fused", fused), ("xla64", xla64)):
-        np.asarray(run(Y0)); np.asarray(run(Y0))      # compile + warm
-        t0 = time.perf_counter()
-        for _ in range(5):
-            np.asarray(run(Y0))
-        print(f"{name}: {(time.perf_counter()-t0)/5*1e3:.1f} ms")
-
-# -- non-smooth problems: the fused CKdisc cascade --------------------
-# CKdisc's staged error assessments and reduced-order fallbacks handle
-# derivative discontinuities; the fused kernel runs the whole cascade
-# as masked member-tile arithmetic (see ops/fused_ckdisc.py docstring).
-from extensisq_tpu.ops import solve_fused_ckdisc
-
-
-def switching_decay(t, y):
-    sw = jnp.where(jnp.sin(3.0 * t) >= 0.0, 1.0, -1.0)
-    return jnp.stack([(-sw - 0.5) * y[0], (sw - 0.5) * y[1]])
-
-
-Yc = np.ones((B, 2), np.float32)
-yc, sc_, nsc, nfc = solve_fused_ckdisc(
-    switching_decay, (0.0, 5.0), Yc, rtol=1e-4, atol=1e-7,
-    interpret=interp)
-print("fused CKdisc:", yc.shape, "all ok:", bool(jnp.all(sc_ == 1)),
-      "mean steps:", float(nsc.mean()))
-
-# -- parameter sweeps: per-member params on the fused path ------------
-# Every fused kernel takes params=(B, k): the RHS gains a third
-# argument p (a k-tuple of per-member tiles), so a mu-sweep runs as
-# ONE kernel — the workload the reference runs as a python loop of
-# solve_ivp calls.  Each member keeps its own adaptive step sequence.
+    return (y[1], 3.0 * (1.0 - y[0] ** 2) * y[1] - y[0])
 
 
 def vdp_p(t, y, p):
-    return jnp.stack([y[1], p[0] * (1.0 - y[0] ** 2) * y[1] - y[0]])
+    return (y[1], p[0] * (1.0 - y[0] ** 2) * y[1] - y[0])
 
 
-mus = np.linspace(0.5, 6.0, B).astype(np.float32)[:, None]
-yp_, sp_, nsp, nfp = solve_fused_erk(
-    vdp_p, (0.0, 10.0), Y0, method=BS5, rtol=1e-4, atol=1e-6,
-    interpret=interp, params=mus)
+B = 256 if interpret else 4096
+rng = np.random.RandomState(0)
+Y0 = jnp.asarray(np.stack([2.0 + 0.1 * rng.randn(B), np.zeros(B)], axis=1))
+kw = dict(method=BS5, rtol=1e-6, atol=1e-9)
+
+fused = jax.jit(lambda Y: solve_fused_erk(vdp, (0.0, 10.0), Y,
+                                          interpret=interpret, **kw))
+xla = jax.jit(lambda Y: solve_ensemble(vdp, (0.0, 10.0), Y, **kw))
+yf, status, nsteps, nfev = fused(Y0)
+out = xla(Y0)
+print("fused:", yf.shape, "all ok:", bool(jnp.all(status == 1)),
+      "mean steps:", float(nsteps.mean()))
+print("same steps as solve_ensemble:",
+      bool(jnp.all(nsteps == out.nsteps)),
+      f"max |y_fused - y_xla| = {float(jnp.max(jnp.abs(yf - out.y))):.2e}")
+
+if not interpret:
+    for name, run in (("fused", fused), ("solve_ensemble", xla)):
+        jax.block_until_ready(run(Y0))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            jax.block_until_ready(run(Y0))
+        print(f"{name}: {(time.perf_counter() - t0) / 5 * 1e3:.3f} ms "
+              f"on {jax.devices()[0].device_kind}")
+
+# -- parameter sweeps: per-member params -------------------------------
+# params=(B, k): the RHS gains a third argument p (a k-tuple of member
+# vectors), so a mu-sweep runs as ONE kernel; each member keeps its own
+# adaptive step sequence.  solve_ensemble(..., params_batch=...) takes
+# the same function.
+mus = jnp.linspace(0.5, 6.0, B)[:, None]
+yp_, sp_, nsp, nfp = solve_fused_erk(vdp_p, (0.0, 10.0), Y0, params=mus,
+                                     interpret=interpret, **kw)
 print("mu sweep:", yp_.shape, "all ok:", bool(jnp.all(sp_ == 1)),
       "steps (mu=0.5 .. mu=6):", int(nsp[0]), "..", int(nsp[-1]))

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``all_methods.ipynb``: integrate one
 problem at a tolerance ladder with ALL methods and tabulate
-(RHS evaluations, achieved error).  On TPU the entire table is a single
+(RHS evaluations, achieved error).  On device the entire table is a single
 batched computation per tolerance: the methods differ, so they compile
 once each, but the ensemble axis of ``solve`` evaluates nothing
 per-member on the host.

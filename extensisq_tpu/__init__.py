@@ -1,4 +1,4 @@
-"""extensisq_tpu: a TPU-native JAX ODE integrator framework.
+"""extensisq_tpu: a JAX ODE integrator framework.
 
 Rebuild of the capabilities of WRKampi/extensisq as a jit/vmap-native
 library: explicit Runge-Kutta pairs of orders 4-9, variable-order Adams
@@ -13,7 +13,7 @@ Two drivers share the steppers:
 * :func:`solve_ivp` — scipy-semantics host driver (events, t_eval,
   dense output, backward integration).
 * :func:`solve` — whole-trajectory-on-device driver (lax.while_loop),
-  vmappable over ensemble axes; the TPU performance path.
+  vmappable over ensemble axes; the device performance path.
 """
 from . import _config  # noqa: F401  (enables x64, defines constants)
 

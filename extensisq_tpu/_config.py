@@ -3,9 +3,7 @@
 The library targets double precision by default, like the reference
 (extensisq assumes float64 throughout: tolerance floors in
 /root/reference/extensisq/common.py:45-53 are derived from double
-precision).  On TPU, float64 is emulated but the per-stage arithmetic of
-ODE steppers is elementwise, so the emulation cost is modest; switch a
-solve to float32 by passing a float32 ``y0``.
+precision).  Switch a solve to float32 by passing a float32 ``y0``.
 """
 import jax
 

@@ -1,6 +1,6 @@
 """Banded linear algebra via block-tridiagonal cyclic reduction.
 
-TPU-native replacement for the reference's sparse SuperLU route
+Device-native replacement for the reference's sparse SuperLU route
 (/root/reference/extensisq/common.py:1756-1776 picks ``splu`` when the
 Jacobian is sparse; the banded MoL systems it serves are exercised by
 the Medazko problem, /root/reference/tests/test_ivp.py:262-291).  A
@@ -8,10 +8,8 @@ direct gbtrf translation would be an O(n) *sequential* scalar loop —
 the worst possible shape for XLA.  Instead, a matrix with bandwidths
 ``(kl, ku)`` is exactly block-tridiagonal with blocks of size
 ``b = max(kl, ku)``, and block cyclic reduction factors/solves it in
-``log2(n/b)`` *sequential* levels of fully batched b×b matmuls — MXU
-work, vmappable over ensembles, and dtype-generic (so the TPU gets
-true-f64 Newton solves here, where the dense path's LU primitive is
-f32-only).
+``log2(n/b)`` *sequential* levels of fully batched b×b matmuls —
+vmappable over ensembles and dtype-generic.
 
 Storage conventions
 -------------------
@@ -32,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .linalg import gauss_solve
+from .numerics import einsum, matmul
 
 
 def bands_of_sparsity(sparsity):
@@ -50,7 +49,7 @@ def rcm_order(sparsity):
     pattern (symmetrized).  Returns ``perm`` (int array: user index
     for each reordered slot, so ``y_perm = y[perm]``).
 
-    The TPU-native answer to the reference's "any sparsity" SuperLU
+    The device-native answer to the reference's "any sparsity" SuperLU
     route (common.py:1756-1776): an irregular pattern whose NATURAL
     bandwidths are huge often reorders to a narrow band, which then
     rides the block-cyclic-reduction factor/solve instead of falling
@@ -253,17 +252,17 @@ def bcr_factor(D, L, U):
         Le, Lo = L[0::2], L[1::2]
         Ue, Uo = U[0::2], U[1::2]
         Dinv = _inv_batched(Do)
-        P = Le @ _shift_down(Dinv)
-        Q = Ue @ Dinv
+        P = matmul(Le, _shift_down(Dinv))
+        Q = matmul(Ue, Dinv)
         levels.append((P, Q, Dinv, Lo, Uo))
-        D = De - P @ _shift_down(Uo) - Q @ Lo
-        L = -(P @ _shift_down(Lo))
-        U = -(Q @ Uo)
+        D = De - matmul(P, _shift_down(Uo)) - matmul(Q, Lo)
+        L = -matmul(P, _shift_down(Lo))
+        U = -matmul(Q, Uo)
     return tuple(levels), _inv_batched(D)
 
 
 def _bmv(M, v):
-    return jnp.einsum("kij,kj->ki", M, v)
+    return einsum("kij,kj->ki", M, v)
 
 
 def bcr_solve(fact, f):

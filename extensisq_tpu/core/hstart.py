@@ -1,6 +1,6 @@
 """Watts' starting-step-size estimator, jit/vmap-native.
 
-TPU-native rewrite of ``h_start`` (/root/reference/extensisq/common.py:519-763,
+JAX-native rewrite of ``h_start`` (/root/reference/extensisq/common.py:519-763,
 itself a translation of SLATEC dstrt.f).  Data-dependent branches of the
 Fortran/numpy original become ``jnp.where`` masks; the Lipschitz sampling
 loop has a static trip count ``min(neq+1, 3)`` so it unrolls at trace

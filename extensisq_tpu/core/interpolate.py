@@ -19,6 +19,7 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from .numerics import einsum
 
 
 def horner(u, Q, y_anchor):
@@ -67,11 +68,11 @@ def quintic_hermite_coefficients(h, y_old, y, f_old, f):
                   [0, 0, 0, -4, 7, -3],
                   [0, 0, 0, 1/2, -1, 1/2]])
     basis = jnp.stack([x0, v0 * h, a0 * h * h, x1, v1 * h, a1 * h * h])
-    coef_x = jnp.einsum("bn,bp->np", basis, jnp.asarray(P))  # (n, 6)
+    coef_x = einsum("bn,bp->np", basis, jnp.asarray(P))  # (n, 6)
     # velocity = derivative / h
     Pp = P[:, 1:] * np.arange(1, 6)
     basis_v = jnp.stack([x0 / h, v0, a0 * h, x1 / h, v1, a1 * h])
-    coef_v = jnp.einsum("bn,bp->np", basis_v, jnp.asarray(Pp))  # (n, 5)
+    coef_v = einsum("bn,bp->np", basis_v, jnp.asarray(Pp))  # (n, 5)
     # unified form: subtract anchor, coefficients for u^1..u^5
     Qx = coef_x[:, 1:]            # coef_x[:,0] == x0
     Qv = jnp.concatenate(

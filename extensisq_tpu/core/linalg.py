@@ -1,12 +1,11 @@
-"""Dense linear solves that work in float64 on TPU, and colored
-autodiff Jacobians for structured sparsity.
+"""Small dense linear solves from elementwise ops, and colored autodiff
+Jacobians for structured sparsity.
 
-The TPU XLA backend implements LuDecomposition only for F32/C64, so
-``jnp.linalg.solve``/``lu_factor`` cannot run in f64 there.  For the
-few full-precision solves the framework needs outside the Newton loop
-(DAE consistent-IC projection, mass-matrix application at setup), this
+For the few solves the framework needs outside the Newton loop (DAE
+consistent-IC projection, mass-matrix application at setup), this
 module provides partial-pivot Gaussian elimination built from
-elementwise jnp ops — dtype-agnostic, jittable, vmappable.
+elementwise jnp ops — dtype-agnostic, jittable, vmappable.  (Whether it
+should give way to ``lax.linalg.lu`` is an open design question.)
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +19,7 @@ def group_columns(sparsity):
     directional derivative recovers all of them (Curtis–Powell–Reid).
     Host-side; ``sparsity`` is any dense/sparse (n, n) 0/1 pattern.
     Returns ``(groups, n_groups)`` with ``groups[j]`` the group of
-    column j.  TPU counterpart of the reference's scipy
+    column j.  Device counterpart of the reference's scipy
     ``group_columns`` use (common.py:1710-1715) — there it seeds
     finite differences, here it seeds forward-mode tangents.
     """

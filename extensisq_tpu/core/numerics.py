@@ -1,13 +1,27 @@
 """Shared scalar kernels: RMS norm, error scale, tolerance validation.
 
-TPU-native counterparts of the L2 kernels in
+JAX-native counterparts of the L2 kernels in
 /root/reference/extensisq/common.py:30-66.  All device functions are pure
 jax and work under jit/vmap for real and complex dtypes.
 """
 from math import sqrt
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a, b):
+    """``a @ b`` at full precision: float32 products must not drop to
+    TF32 on GPUs (a no-op for float64)."""
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
+def einsum(spec, *ops):
+    """``jnp.einsum`` at full precision (see :func:`matmul`)."""
+    return jnp.einsum(spec, *ops, precision=_HIGHEST)
 
 
 def norm(x):
@@ -19,9 +33,8 @@ def norm(x):
     x = jnp.asarray(x)
     if x.size == 0:
         return jnp.asarray(0.0)
-    # multiply+reduce rather than jnp.vdot: identical arithmetic, but
-    # a dot_general cannot lower through Mosaic inside the fused
-    # Pallas kernels (ops/fused_adams.py traces this very function)
+    # multiply+reduce rather than jnp.vdot: identical arithmetic, and
+    # no dot_general, so no TF32 question for float32 states
     if jnp.iscomplexobj(x):
         return jnp.sqrt(jnp.sum(jnp.real(x * jnp.conj(x))) / x.size)
     return jnp.sqrt(jnp.sum(x * x) / x.size)

@@ -2,7 +2,7 @@
 
 The reference delegates the outer loop (t_eval interpolation, event
 root-finding, result assembly) to scipy's driver (SURVEY.md section 1,
-L0).  There is no scipy on the TPU path, so this module re-owns L0: a
+L0).  There is no scipy on the device path, so this module re-owns L0: a
 thin Python loop around a jit-compiled ``step(params, state) -> state``
 kernel, preserving the semantics exercised by
 /root/reference/tests/test_ivp.py (backward integration, event
@@ -389,7 +389,7 @@ def _active_events(g, g_new, direction):
 
 def solve_ivp(fun, t_span, y0, method=None, t_eval=None, dense_output=False,
               events=None, vectorized=False, args=None, **options):
-    """Solve an IVP with scipy-compatible semantics on the TPU steppers.
+    """Solve an IVP with scipy-compatible semantics on the device steppers.
 
     ``fun(t, y[, *args])`` must be jax-traceable (jnp operations); it is
     compiled once per (method, fun, shape) and reused across calls.

@@ -1,91 +1,11 @@
-"""Fused Pallas kernels: whole adaptive integrations in one TPU
-kernel, one per solver family (f32 fast paths; the XLA f64 steppers
-remain the conformance solvers).
+"""Hand-written kernels.
 
-* :func:`solve_fused` — ONE front door: routes by the method's
-  family and the problem size to the kernels below (see dispatch.py)
-* :func:`solve_fused_erk` — explicit RK ensembles (+ mixed-precision
-  compensated mode for official tolerances)
-* :func:`solve_fused_rkn` — Runge-Kutta-Nystrom ensembles
-* :func:`solve_fused_rkc` — stabilized RKC on one resident grid
-  (deviation-form recurrence with double-single coefficients;
-  in-kernel spectral-radius power iteration when no bound is given,
-  in-kernel events and t_eval)
-* :func:`solve_fused_rkc_ensemble` — member ensembles of PDE grids,
-  one member-block per Pallas program instance (BASELINE config 5),
-  same per-member machinery incl. power iteration/events/t_eval
-* :func:`solve_fused_esdirk` — implicit/DAE ensembles (per-member
-  batched Newton, n <= 8)
-* :func:`solve_fused_adams` — variable-order SWAG multistep ensembles
-  (n <= 8; ~2 us per in-kernel step on v5e)
-* :func:`solve_fused_adams_grid` — SWAG for MID-SIZE systems
-  (n a multiple of 128, states on the lane axis, members on
-  sublanes): method-of-lines PDEs and reaction networks the
-  row-unrolled layout cannot express
-* :func:`solve_fused_ckdisc` — the CKdisc variable-order
-  quit/twiddle cascade for NON-SMOOTH problems: staged E1/E2/E4
-  assessments, adaptive twiddle/quit factors and reduced-order
-  fallback acceptance, all as masked member-tile arithmetic
-* :func:`solve_fused_ckdisc_grid` — the cascade for MID-SIZE
-  non-smooth systems (n a multiple of 128, states on the lane axis);
-  shares fused_ckdisc's loop verbatim
-* :func:`solve_fused_erk_grid` — the same states-on-lanes layout for
-  explicit RK pairs (mid-size nonstiff work: advection/reaction MoL,
-  oscillator chains); shares fused_erk's adaptive loop verbatim
-* :func:`solve_fused_esdirk_grid` — mid-size IMPLICIT work (stiff
-  1-D MoL, nearest-neighbour chains, n a power-of-two multiple of
-  128): tridiagonal Newton matrices from 4-color in-kernel JVPs,
-  solved by parallel cyclic reduction on the lane axis
-* :func:`solve_fused_rkn_grid` — mid-size SECOND-ORDER systems
-  (oscillator lattices, discretized wave equations): the partitioned
-  Nystrom loop in the same states-on-lanes layout
-* :func:`solve_fused_sens` — fused FORWARD SENSITIVITIES: the
-  augmented variational system [y; dy/dp_j; dy/dy0_i] in one kernel,
-  tangent rows from in-kernel jax.jvp of the user RHS
-* :func:`solve_fused_adjoint` — ``jax.grad``-able y(t_f) via the
-  CONTINUOUS ADJOINT through the fused forward's recorded dense
-  output: backward cost independent of the parameter count
-* :func:`solve_fused_final` — ``jax.grad``-able y(t_f): custom_vjp
-  whose backward pass is ONE fused augmented solve (value-and-grad of
-  a whole parameter-sweep ensemble in two kernel launches)
-* :func:`solve_fused_erk_complex` — COMPLEX ensembles on the fused
-  path: blocked [Re | Im] real-pair encoding riding the unchanged
-  real ERK kernels (either layout); ``cmul``/``conj_mul`` helpers
-  for split-real RHS products (the reference's support_complex cell,
-  common.py:193; design in docs/TPU_NOTES.md)
-* :class:`FusedDenseSolution` — evaluable continuous dense output
-  from a fused solve (``dense=R`` on the ERK/ESDIRK/RKN/SWAG kernels
-  in BOTH layouts): in-kernel per-step (t, y, f) recording,
-  host-compacted into the framework's unified OdeSolution anchor
-  form
+* :func:`solve_fused_erk` — a whole adaptive explicit Runge-Kutta
+  ensemble solve in one Pallas kernel (Triton route): one program per
+  block of members, the adaptive loop inside.  The XLA path
+  (:func:`extensisq_tpu.solve_ensemble`) stays the reference it is
+  checked against.
 """
-from .dispatch import solve_fused
-from .fused_dense import FusedDenseSolution, build_fused_dense
 from .fused_erk import solve_fused_erk
-from .fused_ckdisc import solve_fused_ckdisc
-from .fused_ckdisc_grid import solve_fused_ckdisc_grid
-from .fused_erk_grid import solve_fused_erk_grid
-from .fused_rkn import solve_fused_rkn
-from .fused_rkn_grid import solve_fused_rkn_grid
-from .fused_rkc import (solve_fused_rkc,
-                        solve_fused_rkc_ensemble)
-from .fused_esdirk import solve_fused_esdirk
-from .fused_esdirk_grid import solve_fused_esdirk_grid
-from .fused_adams import solve_fused_adams
-from .fused_adams_grid import solve_fused_adams_grid
-from .fused_sens import (solve_fused_sens, solve_fused_final,
-                         solve_fused_adjoint)
-from .fused_complex import solve_fused_erk_complex, cmul, conj_mul
 
-__all__ = ["solve_fused",
-           "solve_fused_erk", "solve_fused_ckdisc",
-           "solve_fused_ckdisc_grid", "solve_fused_erk_grid",
-           "solve_fused_rkn", "solve_fused_rkn_grid",
-           "solve_fused_rkc",
-           "solve_fused_rkc_ensemble", "solve_fused_esdirk",
-           "solve_fused_esdirk_grid", "solve_fused_adams",
-           "solve_fused_adams_grid",
-           "solve_fused_sens", "solve_fused_final",
-           "solve_fused_adjoint",
-           "solve_fused_erk_complex", "cmul", "conj_mul",
-           "FusedDenseSolution", "build_fused_dense"]
+__all__ = ["solve_fused_erk"]

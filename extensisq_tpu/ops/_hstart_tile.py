@@ -1,136 +1,122 @@
-"""Watts' starting-step estimator as LAYOUT-GENERIC member-tile
-arithmetic, for use INSIDE the fused Pallas kernels.
+"""Watts' starting-step estimator on row tuples, for use inside the
+fused ERK kernel.
 
-Port of core/hstart.py (itself the rewrite of SLATEC dstrt.f,
-/root/reference/extensisq/common.py:519-763) with the fused kernels'
-conventions: every select is an arithmetic blend, powers go through
-exp/log (Mosaic cannot legalize powf), norms/reductions come in as
-layout closures, and everything is f32 real.  Costs
-``1 + min(n + 1, 3)`` RHS evaluations — the stepper's own accounting
-(steppers/erk.py:132) — so fused nfev matches the XLA path's from
-step zero.
+The same arithmetic as :func:`extensisq_tpu.core.hstart.h_start` (the
+rewrite of SLATEC dstrt.f) in the same order, so that a fused solve
+starts from the step the XLA path starts from.  A state is a tuple of
+``n`` rows, each a vector over the block's members; norms and
+reductions over the state run over the tuple.  Costs
+``1 + min(n + 1, 3)`` RHS evaluations, the stepper's own accounting
+(steppers/erk.py).
 """
-import numpy as np
 import jax.numpy as jnp
-
-_LN10 = float(np.log(10.0))
-
-
-def _eblend(cond, a, b):
-    m = cond.astype(jnp.float32)
-    return m * a + (1.0 - m) * b
+import numpy as np
 
 
-def hstart_tile(df, a, b, y, f, morder, rtol, atol, *, mnorm, msum,
-                mmin, n):
-    """Per-member |h_start| (unsigned member tile).
+def rows_norm(x):
+    """RMS over the state components, per member (core.numerics.norm)."""
+    acc = x[0] * x[0]
+    for xi in x[1:]:
+        acc = acc + xi * xi
+    return jnp.sqrt(acc / len(x))
 
-    ``df(t_tile, y_arr) -> y_arr`` in the layout's convention;
-    ``a, b, rtol, atol`` member scalar tiles; ``y, f`` state arrays;
-    ``mnorm`` the layout RMS over the state axis, ``msum``/``mmin``
-    sum/min over the state axis (all -> member tiles); ``n`` the
-    per-member state count (static).
+
+def _copysign_like(mag, sign_src):
+    return jnp.abs(mag) * jnp.where(sign_src >= 0, 1.0, -1.0)
+
+
+def hstart_rows(df, a, b, y, f, morder, rtol, atol):
+    """Signed starting step per member.
+
+    ``df(t, rows) -> rows``; ``a``, ``b``, ``rtol``, ``atol`` are member
+    vectors; ``y``, ``f`` row tuples of the block's dtype.
     """
-    finfo = np.finfo(np.float32)
+    n = len(y)
+    finfo = np.finfo(y[0].dtype)
     big = float(np.sqrt(finfo.max))
     small = float(np.nextafter(finfo.epsneg, 1.0))
     relper = small ** 0.375
-    # |a|-proportional floors guard t-REPRESENTABILITY; the fused
-    # kernels carry t in double-single (min-step basis 2^-31, see
-    # fused_adams/fused_esdirk), so the f32-eps basis would wrongly
-    # floor h at ~6e-6|t| — at t0 ~ 1e6 that exceeds unit spans and
-    # destroys the estimate (measured: ESDIRK landing failure).
-    small_t = float(2.0 ** -31)
 
-    etol = atol + rtol * jnp.abs(y)
+    etol = [atol + rtol * jnp.abs(yi) for yi in y]
 
     dx = b - a
     absdx = jnp.abs(dx)
-    sdx = _eblend(dx >= 0.0, jnp.ones_like(dx), -jnp.ones_like(dx))
 
     # bound on d f / d t
-    da = sdx * jnp.maximum(
-        jnp.minimum(relper * jnp.abs(a), absdx),
-        100.0 * small_t * jnp.abs(a))
-    da = _eblend(da == 0.0, relper * dx, da)
-    da_safe = _eblend(da == 0.0, jnp.ones_like(da), da)
-    sf = df(a + da, y)                                     # evaluate
-    yp = sf - f
-    delf = mnorm(yp)
-    dfdxb = _eblend(delf < big * jnp.abs(da_safe),
-                    delf / jnp.abs(da_safe), jnp.zeros_like(delf) + big)
-    fbnd = mnorm(sf)
+    da = jnp.sign(dx) * jnp.maximum(
+        jnp.minimum(relper * jnp.abs(a), absdx), 100.0 * small * jnp.abs(a))
+    da = jnp.where(da == 0.0, relper * dx, da)
+    sf = df(a + da, y)                                           # evaluate
+    delf = rows_norm([s - fi for s, fi in zip(sf, f)])
+    dfdxb = jnp.where(delf < big * jnp.abs(da), delf / jnp.abs(da), big)
+    fbnd = rows_norm(sf)
 
     # local Lipschitz constant from min(n + 1, 3) probes
-    dely = relper * mnorm(y)
-    dely = _eblend(dely == 0.0, jnp.zeros_like(dely) + relper, dely)
-    dely = dely * sdx
-    delf = mnorm(f)
+    dely = relper * rows_norm(y)
+    dely = jnp.where(dely == 0.0, relper, dely)
+    dely = dely * jnp.sign(dx)
+    delf = rows_norm(f)
     fbnd = jnp.maximum(fbnd, delf)
 
     have_slope = delf != 0.0
-    hs = jnp.broadcast_to(have_slope, y.shape)
-    spy = _eblend(hs, f, jnp.zeros_like(f))
-    yp = _eblend(hs, f, jnp.ones_like(f))
-    delf = _eblend(have_slope, delf, mnorm(jnp.ones_like(f)))
+    spy = [jnp.where(have_slope, fi, 0.0) for fi in f]
+    yp = [jnp.where(have_slope, fi, 1.0) for fi in f]
+    delf = jnp.where(have_slope, delf, 1.0)
 
     dfdub = jnp.zeros_like(delf)
-    done = delf != delf                  # all-false member mask
+    done = delf != delf                    # all-false member mask
     lk = min(n + 1, 3)
     for k in range(1, lk + 1):
-        delf_s = _eblend(delf == 0.0, jnp.ones_like(delf), delf)
-        pv = y + (dely / delf_s) * yp
+        pv = [yi + dely / delf * ypi for yi, ypi in zip(y, yp)]
         if k == 2:
-            yp = df(a + da, pv)                            # evaluate
-            pv = yp - sf
+            yp = df(a + da, pv)                                  # evaluate
+            pv = [v - s for v, s in zip(yp, sf)]
         else:
-            yp = df(a, pv)                                 # evaluate
-            pv = yp - f
+            yp = df(a, pv)                                       # evaluate
+            pv = [v - fi for v, fi in zip(yp, f)]
 
-        fbnd = _eblend(done, fbnd, jnp.maximum(fbnd, mnorm(yp)))
-        delf = mnorm(pv)
+        fbnd = jnp.where(done, fbnd, jnp.maximum(fbnd, rows_norm(yp)))
+        delf = rows_norm(pv)
         overflow = delf >= big * jnp.abs(dely)
-        dely_s = _eblend(dely == 0.0, jnp.ones_like(dely), dely)
-        dfdub = _eblend(
+        dfdub = jnp.where(
             done, dfdub,
-            _eblend(overflow, jnp.zeros_like(dfdub) + big,
-                    jnp.maximum(dfdub, delf / jnp.abs(dely_s))))
+            jnp.where(overflow, big,
+                      jnp.maximum(dfdub, delf / jnp.abs(dely))))
         done = done | overflow
         if k == lk:
             break
 
         # next perturbation vector, signs matched to local slopes
-        delf = _eblend(delf == 0.0, jnp.ones_like(delf), delf)
+        delf = jnp.where(delf == 0.0, 1.0, delf)
         if k == 2:
-            dy = _eblend(y != 0.0, y,
-                         jnp.zeros_like(y) + dely / relper)
+            dy = [jnp.where(yi != 0, yi, dely / relper) for yi in y]
         else:
-            dy = _eblend(pv != 0.0, pv, jnp.zeros_like(pv) + delf)
-        spy = _eblend(spy != 0.0, spy, yp)
-        sgn = 2.0 * (spy >= 0.0).astype(jnp.float32) - 1.0
-        yp = _eblend(spy != 0.0, jnp.abs(dy) * sgn, dy)
-        delf = mnorm(yp)
+            dy = [jnp.where(v != 0, v, delf) for v in pv]
+        spy = [jnp.where(s != 0, s, v) for s, v in zip(spy, yp)]
+        yp = [jnp.where(s != 0, _copysign_like(d, s), d)
+              for s, d in zip(spy, dy)]
+        delf = rows_norm(yp)
 
     # second-derivative bound and tolerance midpoint
     ydpb = dfdxb + dfdub * fbnd
-    tolexp = jnp.log(etol) * (1.0 / _LN10)
-    tolsum = msum(tolexp)
-    tolmin = jnp.minimum(mmin(tolexp), jnp.zeros_like(dfdub) + big)
-    texp = 0.5 * (tolsum / n + tolmin) / (morder + 1)
-    tolp = jnp.exp(texp * _LN10)
+    tolexp = [jnp.log10(e) for e in etol]
+    tolsum = tolexp[0]
+    tolmin = tolexp[0]
+    for e in tolexp[1:]:
+        tolsum = tolsum + e
+        tolmin = jnp.minimum(tolmin, e)
+    tolmin = jnp.minimum(tolmin, big)
+    tolp = 10.0 ** (0.5 * (tolsum / n + tolmin) / (morder + 1))
 
     h = absdx
     srydpb = jnp.sqrt(0.5 * jnp.maximum(ydpb, 0.0))
-    fbnd_s = _eblend(fbnd == 0.0, jnp.ones_like(fbnd), fbnd)
-    sry_s = _eblend(srydpb == 0.0, jnp.ones_like(srydpb), srydpb)
-    h = _eblend(
+    h = jnp.where(
         (ydpb == 0.0) & (fbnd == 0.0),
-        _eblend(tolp < 1.0, absdx * tolp, h),
-        _eblend(ydpb == 0.0,
-                _eblend(tolp < fbnd * absdx, tolp / fbnd_s, h),
-                _eblend(tolp < srydpb * absdx, tolp / sry_s, h)))
-    dfdub_s = _eblend(dfdub == 0.0, jnp.ones_like(dfdub), dfdub)
-    h = _eblend(dfdub != 0.0, jnp.minimum(h, 1.0 / dfdub_s), h)
-    h = jnp.maximum(h, 100.0 * small_t * jnp.abs(a))
-    h = _eblend(h == 0.0, small * jnp.abs(b), h)
-    return h
+        jnp.where(tolp < 1.0, absdx * tolp, h),
+        jnp.where(ydpb == 0.0,
+                  jnp.where(tolp < fbnd * absdx, tolp / fbnd, h),
+                  jnp.where(tolp < srydpb * absdx, tolp / srydpb, h)))
+    h = jnp.where(dfdub != 0.0, jnp.minimum(h, 1.0 / dfdub), h)
+    h = jnp.maximum(h, 100.0 * small * jnp.abs(a))
+    h = jnp.where(h == 0.0, small * jnp.abs(b), h)
+    return h * jnp.sign(dx)

@@ -1,34 +1,29 @@
-"""Fused Pallas ensemble solver: the whole adaptive RK integration in
-ONE TPU kernel.
+"""Whole-solve explicit Runge-Kutta ensemble kernel (Pallas, Triton route).
 
-The XLA device driver (extensisq_tpu.solve) is kernel-launch-bound for
-small systems: each while-loop iteration dispatches dozens of tiny
-fused kernels.  This module eliminates that entirely — stages, error
-estimation, the accept/reject controller and the time loop all run
-inside a single ``pallas_call``, with the ensemble living in VMEM for
-the whole integration.
+The XLA device driver (:func:`extensisq_tpu.solve_ensemble`) runs one
+``lax.while_loop`` iteration per step attempt, and each iteration is
+many small kernels plus a loop predicate read by the host.  Here one
+Pallas program integrates a block of members from ``t0`` to ``tf``:
+the starting step, the stages, the error estimate, the accept/reject
+controller and the adaptive loop all run inside the kernel, so a solve
+is one launch.
 
-Layout: members occupy full (8, 128) vector tiles; the state is
-(n_state, 8, 128) per block of 1024 members, so every operation
-vectorizes across members on the VPU.  The RHS must be row-indexed
-elementwise jnp code (``fun(t, y) -> same-shape stack over rows``,
-e.g. ``jnp.stack([y[1], mu*(1-y[0]**2)*y[1]-y[0]])``) — the same code
-works for the f64 paths.
+Layout.  Each state component is a vector over the block's members (a
+"row"); the state is a tuple of ``n`` rows.  XLA transposes the
+``(B, n)`` batch to rows outside the kernel.  Members that finish early
+idle until their block completes.
 
-Mosaic workarounds baked in (this backend rejects several legal
-programs):
-* no 64-bit types => the kernel traces with x64 disabled (f32 only);
-* selects over carried bool vectors and several select layouts fail
-  ("invalid relayout") => ALL per-member selection is arithmetic
-  blending m*a + (1-m)*b with int/float masks;
-* blending cannot mask NaN/Inf from overflowed trial steps (0*NaN=NaN)
-  => values are sanitized bit-level (exponent==0xFF detection on the
-  int32 aliases) before entering the carry.
+RHS convention.  ``fun(t, y)`` reads components as ``y[i]`` and returns
+a tuple or list of ``n`` components, e.g.
+``lambda t, y: (y[1], mu * (1 - y[0] ** 2) * y[1] - y[0])``.  Inside the
+kernel ``t`` and each ``y[i]`` are member vectors; on the XLA path
+(``solve``/``solve_ensemble``) the same function gets an ``(n,)`` array
+and the driver turns the tuple into one.  Do not build the result with
+``jnp.stack``: Triton lowers no concatenation along a leading axis.
 
-float32 only => this is the fast path for tolerance regimes f32
-supports (rtol >= ~1e-5); the f64 XLA path remains the conformance
-solver.  Members that finish early become masked no-ops until their
-block completes.
+The arithmetic is that of ``steppers/erk.py`` (``step_flat``) and
+``core/hstart.py`` in the same order, in the dtype of ``y0`` (float32
+or float64), so a float64 solve takes the steps the XLA path takes.
 """
 from typing import Any, NamedTuple
 
@@ -36,832 +31,321 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
+from .._config import (RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW,
+                       MAX_STEPS_REACHED, MAX_FACTOR, MAX_FACTOR0)
 from ..core.controller import resolve_controller
-
-_RUNNING, _FINISHED, _TOO_SMALL, _OVERFLOW = 0, 1, 2, 3
-from .fused_dense import _REC_UNSET  # noqa: E402
-_EVENT = 8     # terminal-event truncation; matches the device
-               # driver's TERMINAL_EVENT (_config.py:34)
+from ._hstart_tile import hstart_rows, rows_norm
 
 
-def _fblend(cond, a, b):
-    """select via arithmetic: cond bool; a, b float32."""
-    m = cond.astype(jnp.float32)
-    return m * a + (1.0 - m) * b
-
-
-def _iblend(cond, a, b):
-    m = cond.astype(jnp.int32)
-    return m * a + (1 - m) * b
-
-
-def _sanitize(x):
-    """Replace NaN/Inf lanes by 1.0 using integer exponent detection
-    (no float select, no NaN-poisoned arithmetic).  Returns
-    (cleaned, bad_mask)."""
-    xi = jax.lax.bitcast_convert_type(x, jnp.int32)
-    exp = jax.lax.bitwise_and(xi, np.int32(0x7F800000))
-    bad = exp == np.int32(0x7F800000)
-    one_bits = jax.lax.bitcast_convert_type(jnp.ones_like(x), jnp.int32)
-    cleaned = _iblend(bad, one_bits, xi)
-    return jax.lax.bitcast_convert_type(cleaned, jnp.float32), bad
-
-
-def _member_norm(x):
-    """RMS over the state axis, per member: (n, 8, 128) -> (8, 128)."""
-    return jnp.sqrt(jnp.mean(x * x, axis=0))
-
-
-# -- compensated / double-single arithmetic (mixed-precision mode) ---------
-#
-# f32 cannot run tight tolerances for two reasons: (1) the embedded
-# error weights sum to zero, so the error estimate is a ~14-bit
-# cancellation of O(h|f|) terms — at rtol 1e-6 the f32 estimate is all
-# round-off; (2) the solution accumulates one f32 rounding per step.
-# Neumaier-compensated dots fix (1) (the sum becomes exact to f32-
-# product precision) and a double-single (hi, lo) carry for y and t
-# fixes (2).  No FMA or f64 needed — Mosaic-safe pure arithmetic.
-
-def _two_sum(a, b):
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    return s, e
-
-
-def _comp_wsum(rows, w):
-    """Neumaier-compensated weighted sum: returns (sum, compensation),
-    exact to the round-off of the individual f32 products."""
-    acc = None
-    comp = None
-    for wi, r in zip(w, rows):
-        if wi == 0.0:
-            continue
-        term = wi * r
-        if acc is None:
-            acc = term
-            comp = jnp.zeros_like(term)
-        else:
-            acc, e = _two_sum(acc, term)
-            comp = comp + e
-    if acc is None:
-        z = jnp.zeros_like(rows[0])
-        return z, z
-    return acc, comp
-
-
-def _df_add(hi, lo, x):
-    """(hi, lo) + x for f32 x: double-single accumulate."""
-    s, e = _two_sum(hi, x)
-    lo_new = lo + e
-    s2, e2 = _two_sum(s, lo_new)
-    return s2, e2
-
-
-def _hermite_tiles(theta, h, y0_rows, f0_rows, y1_rows, f1_rows):
-    """Cubic Hermite at per-member theta over per-member signed h;
-    rows are lists of member tiles.  Same C1 dense output the
-    reference evaluates between steps (common.py:766-790).
-
-    theta is clamped to [0, 1]: lanes that did NOT cross the snapshot
-    point this step still evaluate (their result is blended away), and
-    an unclamped (tq - t)/h can reach ~1e13 when a member's h has
-    collapsed — theta^3 then overflows f32 to inf and the arithmetic
-    blend turns 0*inf into NaN, poisoning the carried row (seen on
-    Robertson via fused ESDIRK on real Mosaic).  Crossed lanes always
-    have theta in [0, 1], so the clamp never changes a used value."""
-    theta = jnp.clip(theta, 0.0, 1.0)
-    t2 = theta * theta
-    t3 = t2 * theta
-    c00 = 2.0 * t3 - 3.0 * t2 + 1.0
-    c10 = h * (t3 - 2.0 * t2 + theta)
-    c01 = 3.0 * t2 - 2.0 * t3
-    c11 = h * (t3 - t2)
-    return [c00 * y0_rows[j] + c10 * f0_rows[j]
-            + c01 * y1_rows[j] + c11 * f1_rows[j]
-            for j in range(len(y0_rows))]
-
-
-
-def _make_ev_spec(events):
-    """Normalize the user ``events`` argument into the static
-    (g, terminal, direction) triples _run_erk_loop consumes (the
-    reference's solve_ivp event-attribute protocol)."""
-    if events is None:
-        return None
-    evs = (events,) if callable(events) else tuple(events)
-    return [(e, bool(getattr(e, "terminal", False)),
-             float(getattr(e, "direction", 0.0))) for e in evs]
-
-
-def _handle_events(ev_spec, ev_state, upd, direction, t_old, t_new,
-                   h, h_safe, y_old_rows, f_old_rows, y_new_rows,
-                   f_new_rows, fzero, izero, join_rows):
-    """One accepted step's event handling, LAYOUT-GENERIC and shared
-    by every fused family that carries (y, y') step endpoints: sign
-    change detection per the solve_ivp terminal/direction protocol,
-    25 bisection rounds on the step's cubic Hermite interpolant,
-    first-crossing recording, terminal selection.
-
-    ``ev_state`` is the (gprev, fired, ev_t, ev_rows) carry tuple.
-    Returns (ev_state_new, trunc, te, y_te_rows): ``trunc`` is the
-    member mask terminated this step, at time ``te`` and state rows
-    ``y_te_rows`` (None when no terminal event exists)."""
-    gprev, evfired, ev_t, ev_rows = ev_state
-    trunc = izero != izero            # all-false member mask
-    te = fzero
-    te_dir = fzero + 1e30
-    y_te_rows = None
-    roots, groots, fires, g_news = [], [], [], []
-    for i, (ge, eterm, edir) in enumerate(ev_spec):
-        g_new_i = ge(t_new, join_rows(y_new_rows))
-        g_news.append(g_new_i)
-        gp = gprev[i]
-        up_x = (gp <= 0.0) & (g_new_i >= 0.0)
-        dn_x = (gp >= 0.0) & (g_new_i <= 0.0)
-        if edir > 0:
-            sign_x = up_x
-        elif edir < 0:
-            sign_x = dn_x
-        else:
-            sign_x = up_x | dn_x
-        fired_i = sign_x & upd & (evfired[i] == 0)
-        a = fzero
-        b = fzero + 1.0
-        fa = gp
-        for _ in range(25):
-            mid = 0.5 * (a + b)
-            ymid = join_rows(_hermite_tiles(
-                mid, h, y_old_rows, f_old_rows,
-                y_new_rows, f_new_rows))
-            fm = ge(t_old + mid * h_safe, ymid)
-            left = fa * fm <= 0.0
-            a = _fblend(left, a, mid)
-            b = _fblend(left, mid, b)
-            fa = _fblend(left, fa, fm)
-        th = 0.5 * (a + b)
-        roots.append(t_old + th * h_safe)
-        groots.append(_hermite_tiles(
-            th, h, y_old_rows, f_old_rows, y_new_rows,
-            f_new_rows))
-        fires.append(fired_i)
-        if eterm:
-            di = direction * roots[i]
-            better = fired_i & (di < te_dir)
-            te_dir = _fblend(better, di, te_dir)
-            te = _fblend(better, roots[i], te)
-            if y_te_rows is None:
-                y_te_rows = [_fblend(better, r, y_new_rows[j])
-                             for j, r in enumerate(groots[i])]
-            else:
-                y_te_rows = [_fblend(better, r, y_te_rows[j])
-                             for j, r in enumerate(groots[i])]
-            trunc = trunc | fired_i
-    # record roots the terminal truncation does not discard
-    ev_t_n, ev_rows_n, evf_n, gp_n = [], [], [], []
-    for i in range(len(ev_spec)):
-        keep = fires[i] & (~trunc
-                           | (direction * roots[i] <= te_dir))
-        ev_t_n.append(_fblend(keep, roots[i], ev_t[i]))
-        ev_rows_n.append(tuple(
-            _fblend(keep, groots[i][j], ev_rows[i][j])
-            for j in range(len(groots[i]))))
-        evf_n.append(_iblend(keep, izero + 1, evfired[i]))
-        gp_n.append(_fblend(upd, g_news[i], gprev[i]))
-    ev_new = (tuple(gp_n), tuple(evf_n), tuple(ev_t_n),
-              tuple(ev_rows_n))
-    return ev_new, trunc, te, y_te_rows
-
-
-class _ES(NamedTuple):
-    """Layout-generic while-loop carry for the fused adaptive ERK loop."""
-    it: Any
-    tf: Any
-    direction: Any
-    rtol: Any
-    atol: Any
+class _Carry(NamedTuple):
     t: Any
-    t_lo: Any
-    y: Any
-    y_lo: Any
-    f: Any
+    y: Any                  # tuple of n rows
+    f: Any                  # tuple of n rows: derivative at (t, y)
     h_abs: Any
     status: Any
-    std_sc: Any
+    standard_sc: Any
     err_old: Any
     h_prev: Any
-    max_fac: Any
-    fresh: Any
-    rejected: Any
+    max_factor: Any
+    fresh: Any              # next attempt starts a new step
     min_step: Any
-    nstep: Any
+    rejected: Any           # an attempt of the current step was rejected
     nfev: Any
-    qrows: Any      # (nq) x (rows) carried t_eval snapshot tiles
-    ev: Any         # (gprev, fired, ev_t, ev_rows) event tuples
+    nsteps: Any
 
 
-def _run_erk_loop(fun, consts, cc, compensated, max_steps, nq, tq_vals,
-                  fzero, izero, mnorm, split_rows,
-                  t, tf_r, dir_r, rtol_r, atol_r, h_abs0, y, f,
-                  ev_spec=None, join_rows=None, nfev0=None,
-                  max_step=None, record=None):
-    """The whole adaptive ERK integration loop, LAYOUT-GENERIC.
-
-    Shared by the two fused-ERK member layouts:
-
-    * ``solve_fused_erk`` — members on the 128-lane axis, state rows
-      unrolled: y (n, sub, 128), per-member scalars (sub, 128);
-    * ``solve_fused_erk_grid`` — state on the lane axis, members on
-      sublanes: y (bm, n), per-member scalars (bm, 1).
-
-    Everything inside broadcasts the per-member scalar tiles against
-    the layout's state array; the two layout-specific operations come
-    in as parameters: ``mnorm`` (RMS over the state axis -> member
-    scalar tile) and ``split_rows`` (state array -> list of hermite
-    row tiles for t_eval snapshots).  ``consts`` is the static
-    tableau tuple (A, B_w, C, E, s, fsal, h_min_a, tiny_err).
-    Returns the final ``_ES`` carry.
-
-    ``ev_spec``: None or a static list of (g, terminal, direction)
-    event triples in the layout's conventions (g(t, y) -> per-member
-    scalar tile).  Sign changes of g across accepted steps are
-    detected like the device driver (solve.py:_make_event_handler ==
-    the reference's solve_ivp event protocol), the root is refined by
-    25 bisection rounds ON THE STEP'S CUBIC HERMITE interpolant, the
-    FIRST crossing per member per event is recorded, and terminal
-    events truncate the member at the earliest terminal root
-    (status 8, the driver's TERMINAL_EVENT).  ``join_rows`` inverts
-    ``split_rows`` (hermite row list -> layout state array) for the
-    in-bisection g evaluations.
-
-    ``record``: optional ``record(it, upd, t_out, y_out, f_new)``
-    callback invoked once per loop iteration with the SCALAR
-    iteration counter, the per-member accept mask and the post-blend
-    step endpoint — the dense-output recording hook
-    (ops/fused_dense.py).  ``f_new`` is the derivative at the
-    untruncated step end; on a terminal-event iteration the recorded
-    ``(t_out, y_out)`` is the event root, so the segment stays
-    endpoint-exact while its end slope is the step's.
-    """
-    A, B_w, C, E, s, fsal, h_min_a, tiny_err = consts
-    n_ev = 0 if ev_spec is None else len(ev_spec)
-
-    def _wsum(rows, w):
-        acc = None
-        for wi, r in zip(w, rows):
-            if wi == 0.0:
-                continue
-            term = wi * r
-            acc = term if acc is None else acc + term
-        return jnp.zeros_like(rows[0]) if acc is None else acc
+def _wsum(stages, w, like):
+    """sum_j w_j * stages[j] over row tuples, zero weights skipped."""
+    acc = None
+    for wj, K in zip(w, stages):
+        if wj == 0.0:
+            continue
+        term = [float(wj) * k for k in K]
+        acc = term if acc is None else [a + b for a, b in zip(acc, term)]
+    return [jnp.zeros_like(r) for r in like] if acc is None else acc
 
 
-    def cond(st):
-        return jnp.max(_iblend(st.status == _RUNNING,
-                               izero + 1, izero)) > 0
+def _axpy(h, x, y):
+    return [yi + h * xi for xi, yi in zip(x, y)]
 
-    def body(st):
-        tf = st.tf
-        direction = st.direction
-        rtol = st.rtol
-        atol = st.atol
-        running = st.status == _RUNNING
-        fresh_b = st.fresh != 0
-        rejected_b = st.rejected != 0
-        std_b = st.std_sc != 0
 
-        # per-step preparation, applied on fresh steps only
-        ms = jnp.maximum(h_min_a * (jnp.abs(st.t) + st.h_abs),
-                         tiny_err)
-        h_pre = jnp.maximum(st.h_abs, ms)
-        if max_step is not None:
-            h_pre = jnp.minimum(h_pre, float(max_step))
-        d = jnp.abs(tf - st.t)
-        split = (d < 2.0 * h_pre) & (d > h_pre)
-        h_f = _fblend(split, jnp.maximum(0.5 * d, ms),
-                      _fblend(d <= h_pre, d, h_pre))
-        h_abs = _fblend(fresh_b, h_f, st.h_abs)
-        min_step = _fblend(fresh_b, ms, st.min_step)
-        std_b = std_b | (fresh_b & split)
+def _scaled_norm(err, y, y_new, rtol, atol):
+    return rows_norm([e / (atol + rtol * jnp.maximum(jnp.abs(a), jnp.abs(b)))
+                      for e, a, b in zip(err, y, y_new)])
+
+
+def _integrate_block(fun, tab, cc, consts, max_steps, max_step, first_step,
+                     t0, tf, direction, rtol, atol, y0):
+    """The whole adaptive integration of one block; returns the final
+    carry.  ``t0``...``atol`` are member vectors, ``y0`` a row tuple."""
+    h_min_a, h_min_b, tiny_err = consts
+    s, fsal = tab.n_stages, tab.fsal
+    A, B, C, E = tab.A, tab.B, tab.C, tab.E
+    npre = tab.n_pre if tab.E_pre is not None else 0
+    m = s + (1 if fsal else 0)
+    izero = jnp.zeros(t0.shape, jnp.int32)
+
+    def rhs(t, y):
+        out = fun(t, tuple(y))
+        if len(out) != len(y):
+            raise ValueError(
+                f"fun returned {len(out)} components for a state of "
+                f"{len(y)}; return a tuple or list of rows")
+        return [jnp.broadcast_to(jnp.asarray(o, t.dtype), t.shape)
+                for o in out]
+
+    f0 = rhs(t0, y0)
+    if first_step is None:
+        b = t0 + direction * jnp.minimum(jnp.abs(tf - t0), max_step)
+        h_abs0 = jnp.abs(hstart_rows(rhs, t0, b, y0, f0, tab.order_secondary,
+                                     rtol, atol))
+        nfev0 = 2 + min(len(y0) + 1, 3)
+    else:
+        h_abs0 = jnp.full(t0.shape, first_step, t0.dtype)
+        nfev0 = 1
+
+    def cond(c):
+        return jnp.max(jnp.where(c.status == RUNNING, 1, 0)) > 0
+
+    def body(c):
+        t, y, f = c.t, list(c.y), list(c.f)
+        running = c.status == RUNNING
+
+        # per-step preparation, on a fresh step only
+        # (ERKStepper.reassess_stepsize)
+        ms = jnp.maximum(h_min_a * (jnp.abs(t) + c.h_abs), h_min_b)
+        out_of_range = (c.h_abs < ms) | (c.h_abs > max_step)
+        hr = jnp.minimum(max_step, jnp.maximum(ms, c.h_abs))
+        d = jnp.abs(tf - t)
+        split = (d < 2.0 * hr) & (d > hr)
+        hr = jnp.where(split, jnp.maximum(0.5 * d, ms),
+                       jnp.where(d <= hr, d, hr))
+        sc_r = c.standard_sc | out_of_range | split
+        h_abs = jnp.where(c.fresh, hr, c.h_abs)
+        min_step = jnp.where(c.fresh, ms, c.min_step)
+        standard_sc = jnp.where(c.fresh, sc_r, c.standard_sc)
 
         too_small = h_abs < min_step
+        live = ~too_small & running
         h = h_abs * direction
 
-        # stages (unrolled, zero weights dropped at trace time)
-        rows = [st.f]
-        if compensated:
-            for i in range(1, s):
-                dy = h * _wsum(rows, A[i, :i])
-                rows.append(fun(st.t + C[i] * h,
-                                st.y + (dy + st.y_lo)))
-            inc_s, inc_c = _comp_wsum(rows, B_w)
-            y_hi, y_lo1 = _df_add(st.y, st.y_lo, h * inc_s)
-            y_hi, y_lo_new = _two_sum(y_hi, y_lo1 + h * inc_c)
-            y_new = y_hi
-        else:
-            for i in range(1, s):
-                dy = h * _wsum(rows, A[i, :i])
-                rows.append(fun(st.t + C[i] * h, st.y + dy))
-            y_new = st.y + h * _wsum(rows, B_w)
-            y_lo_new = st.y_lo
+        # one attempt (ERKStepper._attempt); members that must not
+        # attempt compute it anyway and keep their carry
+        K = [f]
+        for i in range(1, npre or s):
+            dy = _wsum(K[:i], A[i, :i], y)
+            K.append(rhs(t + float(C[i]) * h, _axpy(h, dy, y)))
+        if npre:
+            y_pre = _axpy(h, _wsum(K, tab.B_pre, y), y)
+            err_pre = [h * e for e in _wsum(K, tab.E_pre, y)]
+            pre_norm = _scaled_norm(err_pre, y, y_pre, rtol, atol)
+            pre_ok = ~(pre_norm > 1.0)
+            for i in range(npre, s):
+                dy = _wsum(K[:i], A[i, :i], y)
+                K.append(rhs(t + float(C[i]) * h, _axpy(h, dy, y)))
+        y_new = _axpy(h, _wsum(K[:s], B, y), y)
         if fsal:
-            rows.append(fun(st.t + h, y_new))
-        m = s + (1 if fsal else 0)
-        if compensated:
-            e_s, e_c = _comp_wsum(rows[:m], E[:m])
-            err = h * (e_s + e_c)
+            K.append(rhs(t + h, y_new))
+        err = [h * e for e in _wsum(K[:m], E[:m], y)]
+        err_norm = _scaled_norm(err, y, y_new, rtol, atol)
+        dfev = s - 1 + (1 if fsal else 0)
+        if npre:
+            dfev = jnp.where(pre_ok, dfev, npre - 1)
+            err_norm = jnp.where(pre_ok, err_norm, jnp.inf)
+            err_rej = jnp.where(pre_ok, err_norm, pre_norm)
+            accepted = pre_ok & (err_norm < 1.0)
         else:
-            err = h * _wsum(rows[:m], E[:m])
-        scale = atol + rtol * jnp.maximum(jnp.abs(st.y),
-                                          jnp.abs(y_new))
-        err_norm = mnorm(err / scale)
-        err_norm, bad_e = _sanitize(err_norm)
-        # sanitized error would wrongly accept: push bad members
-        # to a rejecting value, flag overflow via the step cap
-        err_norm = err_norm + bad_e.astype(jnp.float32) * 10.0
+            err_rej = err_norm
+            accepted = err_norm < 1.0
+        bad = jnp.isnan(err_norm) | jnp.isinf(err_norm)
+        if npre:
+            bad = pre_ok & bad
 
-        accepted = (err_norm < 1.0) & ~too_small & running
-
-        # controller (arithmetic-blend version of
-        # core.controller.erk_accept_update)
-        err_c = jnp.maximum(err_norm, 1e-30)
-        f_std = cc.safety * err_c ** cc.error_exponent
-        hr = h / _fblend(st.h_prev == 0.0, h, st.h_prev)
-        f_2nd = jnp.clip(
-            cc.safety_sc * err_c ** cc.minbeta1
-            * jnp.maximum(st.err_old, 1e-30) ** cc.minbeta2
-            * hr ** cc.minalpha, cc.min_factor, st.max_fac)
+        # controller (core.controller.erk_accept_update / reject_factor)
+        h_ratio = h / jnp.where(c.h_prev == 0.0, h, c.h_prev)
+        e = jnp.maximum(err_norm, 1e-300)
+        fac_std = cc.safety * e ** cc.error_exponent
+        e_old = jnp.maximum(c.err_old, 1e-300)
+        hrat = jnp.where(h_ratio == 0.0, 1.0, h_ratio)
+        fac_2nd = jnp.clip(
+            cc.safety_sc * (e ** cc.minbeta1 * e_old ** cc.minbeta2
+                            * hrat ** cc.minalpha),
+            cc.min_factor, c.max_factor)
         is_tiny = err_norm < tiny_err
-        fac_acc = _fblend(is_tiny, st.max_fac,
-                          _fblend(std_b, f_std, f_2nd))
-        fac_acc = _fblend(rejected_b, jnp.minimum(1.0, fac_acc),
-                          fac_acc)
-        std_after = _iblend(is_tiny, izero + 1,
-                            _iblend(std_b, izero, st.std_sc))
-        max_fac_new = _fblend(fac_acc < 4.0, fzero + 4.0,
-                              st.max_fac)
+        fac_acc = jnp.where(is_tiny, c.max_factor,
+                            jnp.where(standard_sc, fac_std, fac_2nd))
+        fac_acc = jnp.where(c.rejected, jnp.minimum(1.0, fac_acc), fac_acc)
+        mf_acc = jnp.where(fac_acc < MAX_FACTOR, MAX_FACTOR, c.max_factor)
         fac_rej = jnp.maximum(
-            cc.min_factor, cc.safety * err_c ** cc.error_exponent)
-        h_abs_next = h_abs * _fblend(accepted, fac_acc, fac_rej)
-        h_abs_next, _ = _sanitize(h_abs_next)
+            cc.min_factor,
+            cc.safety * jnp.maximum(err_rej, 1e-300) ** cc.error_exponent)
 
-        status = _iblend(running & too_small, izero + _TOO_SMALL,
-                         _iblend(running & bad_e,
-                                 izero + _OVERFLOW, st.status))
+        accepted = accepted & live
+        h_abs_next = jnp.where(
+            live, h_abs * jnp.where(accepted, fac_acc, fac_rej), h_abs)
+        status = jnp.where(live & bad & ~accepted, OVERFLOW, c.status)
+        status = jnp.where(too_small & running, TOO_SMALL_STEP, status)
+        nfev = c.nfev + jnp.where(live, dfev, 0)
 
-        is_last = accepted & (h_abs >= d)
-        if compensated:
-            t_adv, t_lo_adv = _df_add(st.t, st.t_lo, h)
-            t_new = _fblend(is_last, tf, t_adv)
-            t_lo_new = _fblend(is_last, fzero, t_lo_adv)
-        else:
-            t_new = _fblend(is_last, tf, st.t + h)
-            t_lo_new = st.t_lo
-        status = _iblend((status == _RUNNING) & is_last,
-                         izero + _FINISHED, status)
-
+        ok = accepted
+        is_last = ok & (h_abs >= d)
+        t_new = jnp.where(is_last, tf, t + h)
         if fsal:
-            f_new = rows[s]
+            f_new = K[s]
         else:
-            f_new = fun(t_new, y_new)
-        y_new, _ = _sanitize(y_new)
-        f_new, _ = _sanitize(f_new)
+            f_new = rhs(t_new, y_new)
+            nfev = nfev + jnp.where(ok, 1, 0)
+        status = jnp.where((status == RUNNING) & is_last, FINISHED, status)
+        nsteps = c.nsteps + jnp.where(ok, 1, 0)
+        status = jnp.where((nsteps >= max_steps) & (status == RUNNING),
+                           MAX_STEPS_REACHED, status)
 
-        upd = accepted
-        dfev = _iblend(running, izero + (s if fsal else s - 1),
-                       izero)
-        if not fsal:
-            dfev = dfev + _iblend(upd, izero + 1, izero)
-        hit_cap = (st.it + 1 >= max_steps) & (status == _RUNNING)
-        status = _iblend(hit_cap, izero + _OVERFLOW, status)
-
-        # t_eval snapshots: members that crossed tq this step get
-        # their row cubic-Hermite interpolated from the step's
-        # (y, f) endpoint pairs (common.py:766-790 semantics)
-        qrows_new = st.qrows
-        if nq or n_ev:
-            y_old_rows = split_rows(st.y)
-            f_old_rows = split_rows(st.f)
-            y_new_rows = split_rows(y_new)
-            f_new_rows = split_rows(f_new)
-            h_safe = _fblend(h == 0.0, fzero + 1.0, h)
-        if nq:
-            qrows_new = []
-            for q in range(nq):
-                tqc = tq_vals[q]
-                crossed = (upd
-                           & (direction * (tqc - st.t) > 0.0)
-                           & (direction * tqc
-                              <= direction * t_new))
-                theta = (tqc - st.t) / h_safe
-                vals = _hermite_tiles(theta, h, y_old_rows,
-                                      f_old_rows, y_new_rows,
-                                      f_new_rows)
-                qrows_new.append(tuple(
-                    _fblend(crossed, vals[j], st.qrows[q][j])
-                    for j in range(len(vals))))
-            qrows_new = tuple(qrows_new)
-
-        # events: sign change over the accepted step -> 25-round
-        # bisection on the Hermite interpolant; first crossing per
-        # member recorded; terminal events truncate at the earliest
-        # terminal root (solve.py:_make_event_handler semantics)
-        ev_new = st.ev
-        trunc = izero != izero            # all-false member mask
-        te = fzero
-        y_te_rows = None
-        if n_ev:
-            ev_new, trunc, te, y_te_rows = _handle_events(
-                ev_spec, st.ev, upd, direction, st.t, t_new, h,
-                h_safe, y_old_rows, f_old_rows, y_new_rows,
-                f_new_rows, fzero, izero, join_rows)
-            status = _iblend(trunc, izero + _EVENT, status)
-
-        updn = jnp.broadcast_to(upd, st.y.shape)
-        y_out = _fblend(updn, y_new, st.y)
-        t_out = _fblend(upd, t_new, st.t)
-        t_lo_out = _fblend(upd, t_lo_new, st.t_lo)
-        if n_ev and y_te_rows is not None:
-            y_trunc = join_rows(y_te_rows)
-            truncn = jnp.broadcast_to(trunc, st.y.shape)
-            y_out = _fblend(truncn, y_trunc, y_out)
-            t_out = _fblend(trunc, te, t_out)
-            t_lo_out = _fblend(trunc, fzero, t_lo_out)
-        if record is not None:
-            record(st.it, upd, t_out, y_out, f_new)
-        return _ES(
-            it=st.it + 1,
-            tf=st.tf, direction=st.direction,
-            rtol=st.rtol, atol=st.atol,
-            t=t_out,
-            t_lo=t_lo_out,
-            y=y_out,
-            y_lo=_fblend(updn, y_lo_new, st.y_lo),
-            f=_fblend(updn, f_new, st.f),
-            h_abs=_fblend(running, h_abs_next, st.h_abs),
+        return _Carry(
+            t=jnp.where(ok, t_new, t),
+            y=tuple(jnp.where(ok, a, b) for a, b in zip(y_new, y)),
+            f=tuple(jnp.where(ok, a, b) for a, b in zip(f_new, f)),
+            h_abs=h_abs_next,
             status=status,
-            std_sc=_iblend(upd, std_after, st.std_sc),
-            err_old=_fblend(upd, err_norm, st.err_old),
-            h_prev=_fblend(upd, h, st.h_prev),
-            max_fac=_fblend(upd, max_fac_new, st.max_fac),
-            fresh=_iblend(upd | (status != _RUNNING), izero + 1,
-                          izero),
-            rejected=_iblend(upd, izero,
-                             _iblend(rejected_b
-                                     | (running & ~accepted),
-                                     izero + 1, izero)),
+            standard_sc=jnp.where(ok, is_tiny, standard_sc),
+            err_old=jnp.where(ok, err_norm, c.err_old),
+            h_prev=jnp.where(ok, h, c.h_prev),
+            max_factor=jnp.where(ok, mf_acc, c.max_factor),
+            fresh=ok | (status != RUNNING),
             min_step=min_step,
-            nstep=st.nstep + _iblend(upd, izero + 1, izero),
-            nfev=st.nfev + dfev,
-            qrows=qrows_new,
-            ev=ev_new,
-        )
+            rejected=(c.rejected | (live & ~accepted)) & ~ok,
+            nfev=nfev,
+            nsteps=nsteps)
 
-    # snapshot rows start at y0: covers points at/before t0
-    qrows0 = tuple(tuple(split_rows(y)) for _ in range(nq))
-    if n_ev:
-        ev0 = (tuple(ge(t, y) for ge, _, _ in ev_spec),   # g(t0, y0)
-               tuple(izero for _ in range(n_ev)),
-               tuple(fzero for _ in range(n_ev)),
-               tuple(tuple(split_rows(y)) for _ in range(n_ev)))
-    else:
-        ev0 = ()
-    st0 = _ES(
-        it=jnp.zeros((), jnp.int32),
-        tf=tf_r, direction=dir_r, rtol=rtol_r, atol=atol_r,
-        t=t, t_lo=fzero, y=y, y_lo=y * 0.0, h_abs=h_abs0, f=f,
-        status=izero, std_sc=izero + 1, err_old=fzero + 1.0,
-        h_prev=fzero, max_fac=fzero + 10.0, fresh=izero + 1,
-        rejected=izero, min_step=fzero, nstep=izero,
-        nfev=izero + 1 if nfev0 is None else nfev0,
-        qrows=qrows0, ev=ev0)
-    return jax.lax.while_loop(cond, body, st0)
+    zero = jnp.zeros_like(t0)
+    c0 = _Carry(
+        t=t0, y=tuple(y0), f=tuple(f0), h_abs=h_abs0,
+        status=izero + RUNNING, standard_sc=izero == 0,
+        err_old=zero + 1.0, h_prev=zero, max_factor=zero + MAX_FACTOR0,
+        fresh=izero == 0, min_step=zero, rejected=izero != 0,
+        nfev=izero + nfev0, nsteps=izero)
+    return jax.lax.while_loop(cond, body, c0)
 
 
-def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-4,
-                    atol=1e-6, first_step=None, max_steps=100_000,
-                    block_members=1024, interpret=False,
-                    compensated=False, t_eval=None, events=None,
-                    max_step=None, params=None, dense=None):
+def solve_fused_erk(fun, t_span, y0_batch, method=None, rtol=1e-3,
+                    atol=1e-6, first_step=None, max_step=np.inf,
+                    max_steps=10_000, params=None, block_members=128,
+                    interpret=False):
     """Integrate an ensemble of small ODE systems in one Pallas kernel.
 
-    y0_batch: (B, n) float32 initial states.  Returns
-    (y_final (B, n), status (B,), nsteps (B,), nfev (B,)) with status 1
-    = finished, 2 = step size underflow, 3 = overflow/step cap.
+    ``y0_batch``: ``(B, n)`` float32 or float64 initial states; the
+    kernel computes in that dtype.  ``method``: an explicit pair
+    (family ``'erk'``, default BS5).  ``rtol``, ``atol``,
+    ``first_step``, ``max_step`` and ``max_steps`` mean what they mean
+    for :func:`extensisq_tpu.solve`.
 
-    ``compensated=True`` enables the mixed-precision mode: Neumaier-
-    compensated solution/error dots and a double-single (hi, lo) carry
-    for y and t.  This removes the two f32 failure modes at tight
-    tolerances (error-estimate cancellation and per-step accumulation
-    round-off), extending the usable range to rtol ~1e-6 / atol ~1e-9
-    while staying inside one f32 TPU kernel.
+    ``params``: optional ``(B, k)`` per-member parameters.  ``fun`` is
+    then called as ``fun(t, y, p)`` with ``p`` a ``k``-tuple (one
+    member vector each); on the XLA path
+    ``solve_ensemble(fun, ..., params_batch=params)`` passes the same
+    function a ``(k,)`` array, so ``p[j]`` works in both.
 
-    ``t_eval``: optional increasing (in integration direction)
-    sequence of snapshot times.  Snapshot rows are interpolated FROM
-    INSIDE the kernel as each member's integration crosses each point
-    (cubic Hermite from the step-endpoint (y, f) pairs — the
-    reference's inter-step evaluation, common.py:766-790), carried as
-    member tiles, and appended to the return:
-    (y_final, status, nsteps, nfev, y_eval) with ``y_eval`` of shape
-    (len(t_eval), B, n).  Points at/before t0 take y0; points a
-    member never reaches take its final state.
+    ``block_members``: members per program, a power of two; the
+    program gets one thread per member (at most 8 warps).
+    ``interpret=True`` runs the kernel in the Pallas interpreter on any
+    backend, for tests.
 
-    ``events``: optional callable or list of callables in the
-    layout's conventions (g(t, y) -> per-member tile, e.g.
-    ``lambda t, y: y[0]``), each optionally carrying the reference's
-    ``terminal`` / ``direction`` attributes (the solve_ivp event
-    protocol).  Sign changes across accepted steps fire the event;
-    the root is bisected in-kernel on the step's cubic Hermite
-    interpolant (solve.py:_make_event_handler semantics, first
-    crossing per member recorded), and terminal events truncate the
-    member at the root with status 8 (the driver's TERMINAL_EVENT).
-    Appends ``(t_events (n_ev, B), y_events (n_ev, B, n),
-    n_events (n_ev, B))`` to the return; non-fired slots are NaN.
-
-    ``params``: optional (B, k) float32 per-member scalar parameters
-    (the parameter-sweep ensemble axis, matching
-    ``solve_fused_rkc_ensemble``).  When given, ``fun`` — and every
-    event callable — is called as ``fun(t, y, p)`` with ``p`` a
-    k-tuple of per-member tiles broadcastable against the rows of
-    ``y`` (use ``p[j]`` like a scalar: e.g.
-    ``lambda t, y, p: jnp.stack([y[1], p[0]*(1-y[0]**2)*y[1]-y[0]])``).
-
-    ``dense``: optional int ``R`` — record up to ``R`` per-step
-    ``(t, y, f)`` rows from inside the kernel and append an evaluable
-    per-member :class:`~extensisq_tpu.ops.fused_dense.
-    FusedDenseSolution` (cubic Hermite segments in the framework's
-    unified OdeSolution form, the reference's ``sol`` capability,
-    common.py:766-821) as the LAST return element.  ``R`` counts loop
-    iterations (accepted + rejected attempts); members that need more
-    get ``sol.valid[b] = False``.  The recording buffers live in VMEM
-    ((2n + 2) * R * block_members * 4 bytes) — use a smaller
-    ``block_members`` for long trajectories.
+    Returns ``(y (B, n), status (B,), nsteps (B,), nfev (B,))`` with the
+    status codes of :class:`extensisq_tpu.Solution`.
     """
     if method is None:
         from ..methods import BS5 as method
+    if method.family != "erk":
+        raise ValueError(
+            f"solve_fused_erk takes explicit Runge-Kutta pairs "
+            f"(family 'erk'), not {method.name} ({method.family!r})")
     tab = method.tableau
-    A = np.asarray(tab.A, dtype=np.float32)
-    B_w = np.asarray(tab.B, dtype=np.float32)
-    C = np.asarray(tab.C, dtype=np.float32)
-    E = np.asarray(tab.E, dtype=np.float32)
-    s = tab.n_stages
-    fsal = tab.fsal
-    err_order = min(tab.order_secondary, tab.order)
-    cc = resolve_controller(None, tab.sc_params, -1.0 / (err_order + 1))
-    eps32 = float(np.finfo(np.float32).eps)
-    tiny_err = float(np.sqrt(np.finfo(np.float32).tiny))
-    h_min_a = 10.0 * eps32 / tab.c_spacing()
+    bm = int(block_members)
+    if bm < 1 or bm & (bm - 1):
+        raise ValueError("block_members must be a power of two")
 
-    y0_batch = jnp.asarray(y0_batch, jnp.float32)
+    y0_batch = jnp.asarray(y0_batch)
+    if not jnp.issubdtype(y0_batch.dtype, jnp.floating):
+        y0_batch = y0_batch.astype(jnp.float64)
+    dtype = y0_batch.dtype
+    if y0_batch.ndim != 2:
+        raise ValueError("y0_batch must be (B, n)")
     n_total, n = y0_batch.shape
-    bm = block_members
-    if bm % 128:
-        raise ValueError("block_members must be a multiple of 128")
     pad = (-n_total) % bm
-    if pad:
-        y0_batch = jnp.concatenate(
-            [y0_batch, jnp.tile(y0_batch[-1:], (pad, 1))])
-    grid = y0_batch.shape[0] // bm
-    sub = bm // 128
+    grid = (n_total + pad) // bm
 
+    def rows_of(x):
+        # (B, k) -> k padded member vectors; padding repeats the last
+        # member so that padded lanes take its steps
+        x = jnp.concatenate([x, jnp.repeat(x[-1:], pad, axis=0)]) \
+            if pad else x
+        return list(x.T)
+
+    rows = rows_of(y0_batch)
     if params is not None:
-        params = jnp.asarray(params, jnp.float32)
+        params = jnp.asarray(params, dtype)
         if params.ndim != 2 or params.shape[0] != n_total:
             raise ValueError("params must be (B, k)")
+        rows += rows_of(params)
         n_par = params.shape[1]
-        if pad:
-            params = jnp.concatenate(
-                [params, jnp.tile(params[-1:], (pad, 1))])
     else:
         n_par = 0
 
     t0, tf = t_span
-    if first_step is not None:
-        h0 = jnp.asarray(first_step, jnp.float32)
-    else:
-        h0 = jnp.float32(-1.0)       # sentinel: in-kernel h_start
-    t0 = jnp.asarray(t0, jnp.float32)
-    tf = jnp.asarray(tf, jnp.float32)
-    direction = jnp.sign(tf - t0)
-    scalars = jnp.stack([t0, tf, jnp.float32(rtol), jnp.float32(atol),
-                         direction, h0])
+    t0 = jnp.asarray(t0, dtype)
+    tf = jnp.asarray(tf, dtype)
+    sgn = jnp.sign(tf - t0)
+    direction = jnp.where(sgn == 0, 1.0, sgn).astype(dtype)
+    # padded to 8 entries: a Triton block is a power of two
+    scalars = jnp.stack([t0, tf, jnp.asarray(rtol, dtype),
+                         jnp.asarray(atol, dtype), direction,
+                         jnp.zeros((), dtype), jnp.zeros((), dtype),
+                         jnp.zeros((), dtype)])
 
-    nq = 0 if t_eval is None else int(np.asarray(t_eval).shape[0])
-    tq_vals = (None if t_eval is None
-               else [float(v) for v in np.asarray(t_eval)])
+    err_order = min(tab.order_secondary, tab.order)
+    cc = resolve_controller(None, tab.sc_params, -1.0 / (err_order + 1))
+    finfo = np.finfo(dtype)
+    # (h_min_a, h_min_b, tiny_err) as in ERKStepper; Python floats, so
+    # that they do not promote a float32 kernel
+    sqrt_tiny = float(np.sqrt(finfo.tiny))
+    consts = (float(10.0 * finfo.epsneg / tab.c_spacing()), sqrt_tiny,
+              sqrt_tiny)
+    max_step = float(max_step)
+    first_step = None if first_step is None else float(first_step)
 
-    ev_spec = _make_ev_spec(events)
-    n_ev = 0 if ev_spec is None else len(ev_spec)
-
-    n_rec = 0 if dense is None else int(dense)
-    if n_rec:
-        # (R, n, bm) rows: n on SUBLANES (pads to 8), members on the
-        # lane axis — (R, bm, n) would pad n to 128 LANES, 64x the
-        # VMEM (measured: bm=256, R=64 already blows the core)
-        vmem = (2 * -(-n // 8) * 8 + 8) * n_rec * bm * 4
-        if vmem > 6 * 2 ** 20:
-            raise ValueError(
-                f"dense={n_rec} recording needs {vmem / 2**20:.1f} MiB "
-                f"of VMEM at block_members={bm}; lower block_members "
-                "(the buffers scale with it) or record fewer rows")
-
-    def kernel(sc_ref, y0_ref, *rest):
-        rest = list(rest)
-        par_ref = rest.pop(0) if n_par else None
-        yout_ref, stat_ref, nstep_ref, nfev_ref = rest[:4]
-        rest = rest[4:]
-        yq_ref = rest.pop(0) if nq else None
-        if n_ev:
-            tev_ref, yev_ref, fev_ref = rest[:3]
-            rest = rest[3:]
-        if n_rec:
-            rect_ref, recy_ref, recf_ref, f0_ref = rest[:4]
-        y = y0_ref[:].T.reshape(n, sub, 128)
+    def kernel(sc_ref, *refs):
+        in_refs, out_refs = refs[:n + n_par], refs[n + n_par:]
+        y0 = [r[...] for r in in_refs[:n]]
+        vec = lambda k: jnp.full((bm,), sc_ref[k], dtype)  # noqa: E731
         if n_par:
-            pr = par_ref[:].T.reshape(n_par, sub, 128)
-            p = tuple(pr[j] for j in range(n_par))
-            fun1 = lambda t, yy: fun(t, yy, p)            # noqa: E731
-            wrap = lambda g: (lambda t, yy: g(t, yy, p))  # noqa: E731
+            p = tuple(r[...] for r in in_refs[n:])
+            f = lambda t, y: fun(t, y, p)                   # noqa: E731
         else:
-            fun1 = fun
-            wrap = lambda g: g                            # noqa: E731
-        ev_spec_k = (None if ev_spec is None else
-                     [(wrap(ge), tm, dr) for ge, tm, dr in ev_spec])
-        # distributed-layout zeros keep the while carry away from
-        # replicated layouts (Mosaic cannot relayout back to them);
-        # derived from runtime data so they cannot be constant-folded
-        # into replicated splats (iota*0 gets folded)
-        fzero = y[0] * 0.0
-        izero = fzero.astype(jnp.int32)
-        t = sc_ref[0] + fzero
-        tf_r = sc_ref[1] + fzero
-        rtol_r = sc_ref[2] + fzero
-        atol_r = sc_ref[3] + fzero
-        dir_r = sc_ref[4] + fzero
-        h_abs0 = sc_ref[5] + fzero
-        f = fun1(t, y)
+            f = fun
+        c = _integrate_block(
+            f, tab, cc, consts, max_steps, max_step, first_step,
+            vec(0), vec(1), vec(4), vec(2), vec(3), y0)
+        for r, v in zip(out_refs[:n], c.y):
+            r[...] = v
+        out_refs[n][...] = c.status
+        out_refs[n + 1][...] = c.nsteps
+        out_refs[n + 2][...] = c.nfev
 
-        nfev0 = None
-        if first_step is None:
-            # in-kernel Watts h_start (steppers/erk.py:129 semantics)
-            from ._hstart_tile import hstart_tile
-            bq = t + dir_r * jnp.minimum(
-                jnp.abs(tf_r - t),
-                jnp.zeros_like(t) + (np.inf if max_step is None
-                                     else float(max_step)))
-            h_abs0 = jnp.abs(hstart_tile(
-                fun1, t, bq, y, f, tab.order_secondary, rtol_r, atol_r,
-                mnorm=_member_norm,
-                msum=lambda x: jnp.sum(x, axis=0),
-                mmin=lambda x: jnp.min(x, axis=0), n=n))
-            nfev0 = izero + 2 + min(n + 1, 3)
-
-        record = None
-        if n_rec:
-            f0_ref[:] = f.reshape(n, bm).T
-            # non-accepted / never-reached rows read the sentinel
-            # (arithmetic blends forbid NaN coding: 0 * NaN = NaN)
-            rect_ref[:] = jnp.full((n_rec, 1, bm), _REC_UNSET,
-                                   jnp.float32)
-
-            def record(itv, upd, t_out, y_out, f_new):  # noqa: F811
-                @pl.when(itv < n_rec)
-                def _():
-                    rect_ref[itv] = _fblend(
-                        upd, t_out, fzero + _REC_UNSET).reshape(1, bm)
-                    recy_ref[itv] = y_out.reshape(n, bm)
-                    recf_ref[itv] = f_new.reshape(n, bm)
-
-        st = _run_erk_loop(
-            fun1, (A, B_w, C, E, s, fsal, h_min_a, tiny_err), cc,
-            compensated, max_steps, nq, tq_vals, fzero, izero,
-            _member_norm, lambda yy: [yy[j] for j in range(n)],
-            t, tf_r, dir_r, rtol_r, atol_r, h_abs0, y, f,
-            ev_spec=ev_spec_k, join_rows=jnp.stack, nfev0=nfev0,
-            max_step=max_step, record=record)
-
-        yout_ref[:] = st.y.reshape(n, bm).T
-        stat_ref[:] = st.status.reshape(1, bm)
-        nstep_ref[:] = st.nstep.reshape(1, bm)
-        nfev_ref[:] = st.nfev.reshape(1, bm)
-        if nq:
-            # flush points the member never reached with its final y
-            for q in range(nq):
-                unreached = dir_r * tq_vals[q] > dir_r * st.t
-                rows = [_fblend(unreached, st.y[j], st.qrows[q][j])
-                        for j in range(n)]
-                yq_ref[q] = jnp.stack(rows).reshape(n, bm).T
-        if n_ev:
-            _, evf, ev_t, ev_rows = st.ev
-            for i in range(n_ev):
-                tev_ref[i] = ev_t[i].reshape(1, bm)
-                yev_ref[i] = jnp.stack(ev_rows[i]).reshape(n, bm).T
-                fev_ref[i] = evf[i].reshape(1, bm)
-
-    n_padded = y0_batch.shape[0]
-    out_shapes = [
-        jax.ShapeDtypeStruct((n_padded, n), jnp.float32),
-        jax.ShapeDtypeStruct((1, n_padded), jnp.int32),
-        jax.ShapeDtypeStruct((1, n_padded), jnp.int32),
-        jax.ShapeDtypeStruct((1, n_padded), jnp.int32),
-    ]
-    out_specs = [
-        pl.BlockSpec((bm, n), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bm), lambda i: (0, i),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bm), lambda i: (0, i),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bm), lambda i: (0, i),
-                     memory_space=pltpu.VMEM),
-    ]
-    if nq:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((nq, n_padded, n), jnp.float32))
-        out_specs.append(
-            pl.BlockSpec((nq, bm, n), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM))
-    if n_ev:
-        out_shapes += [
-            jax.ShapeDtypeStruct((n_ev, 1, n_padded), jnp.float32),
-            jax.ShapeDtypeStruct((n_ev, n_padded, n), jnp.float32),
-            jax.ShapeDtypeStruct((n_ev, 1, n_padded), jnp.int32),
-        ]
-        out_specs += [
-            pl.BlockSpec((n_ev, 1, bm), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_ev, bm, n), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_ev, 1, bm), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ]
-    if n_rec:
-        out_shapes += [
-            jax.ShapeDtypeStruct((n_rec, 1, n_padded), jnp.float32),
-            jax.ShapeDtypeStruct((n_rec, n, n_padded), jnp.float32),
-            jax.ShapeDtypeStruct((n_rec, n, n_padded), jnp.float32),
-            jax.ShapeDtypeStruct((n_padded, n), jnp.float32),
-        ]
-        out_specs += [
-            pl.BlockSpec((n_rec, 1, bm), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_rec, n, bm), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_rec, n, bm), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bm, n), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec((bm, n), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [scalars, y0_batch]
-    if n_par:
-        in_specs.append(pl.BlockSpec((bm, n_par), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(params)
-    # trace with x64 OFF: TPU Pallas has no 64-bit types and the
-    # library enables x64 globally (weak literals would promote)
-    with jax.enable_x64(False):
-        outs = pl.pallas_call(
-            kernel,
-            grid=(grid,),
-            in_specs=in_specs,
-            out_specs=tuple(out_specs),
-            out_shape=tuple(out_shapes),
-            interpret=interpret,
-        )(*args)
-
-    y_out, status, nsteps, nfev = outs[:4]
-    y_out = y_out[:n_total]
-    base = (y_out, status[0, :n_total], nsteps[0, :n_total],
-            nfev[0, :n_total])
-    k = 4
-    if nq:
-        base = base + (outs[k][:, :n_total],)
-        k += 1
-    if n_ev:
-        tev, yev, fev = outs[k], outs[k + 1], outs[k + 2]
-        fired = fev[:, 0, :n_total]
-        nanv = jnp.float32(np.nan)
-        t_events = jnp.where(fired != 0, tev[:, 0, :n_total], nanv)
-        y_events = jnp.where((fired != 0)[:, :, None],
-                             yev[:, :n_total], nanv)
-        base = base + (t_events, y_events, fired)
-        k += 3
-    if n_rec:
-        from .fused_dense import build_fused_dense
-        rect, recy, recf, f0 = outs[k:k + 4]
-        rect = rect[:, 0, :n_total]
-        flags = (rect < 0.5 * _REC_UNSET).astype(jnp.int32)
-        sol = build_fused_dense(
-            t0, tf, y0_batch[:n_total], f0[:n_total],
-            jnp.where(flags != 0, rect, 0.0), flags,
-            jnp.swapaxes(recy[:, :, :n_total], 1, 2),
-            jnp.swapaxes(recf[:, :, :n_total], 1, 2), base[2])
-        base = base + (sol,)
-    return base
+    row = pl.BlockSpec((bm,), lambda i: (i,))
+    n_pad = n_total + pad
+    outs = pl.pallas_call(
+        kernel,
+        grid=(grid,),
+        in_specs=[pl.BlockSpec((8,), lambda i: (0,))] + [row] * len(rows),
+        out_specs=[row] * (n + 3),
+        out_shape=([jax.ShapeDtypeStruct((n_pad,), dtype)] * n
+                   + [jax.ShapeDtypeStruct((n_pad,), jnp.int32)] * 3),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=min(max(bm // 32, 1), 8), num_stages=1),
+        interpret=interpret,
+        name=f"fused_erk_{tab.name}",
+    )(scalars, *rows)
+    y = jnp.stack(outs[:n], axis=1)[:n_total]
+    return (y,) + tuple(o[:n_total] for o in outs[n:])

@@ -5,7 +5,7 @@ plain ``jnp.roll`` and rely on GSPMD to turn the shifts into halo
 exchanges.  That is the recommended path.  This module provides the
 manual equivalent (SURVEY.md section 5.8): the state lives sharded over
 a mesh axis, each device computes its local stencil, and the halos move
-as explicit ``jax.lax.ppermute`` collectives over ICI.  Use it when the
+as explicit ``jax.lax.ppermute`` collectives.  Use it when the
 automatic partitioner's choice needs to be pinned down (or audited),
 and as the template for wider-stencil kernels.
 

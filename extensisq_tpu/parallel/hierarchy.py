@@ -1,58 +1,44 @@
-"""Two-level (DCN x ICI) hierarchical meshes for multi-host pods.
+"""Two-level (members x space) meshes.
 
-A TPU pod slice has two very different interconnects: ICI links the
-chips within a slice (fast, ~100s of GB/s per link), and DCN links
-hosts across slices (10-100x slower).  The reference scales the RKC
-workloads with flat MPI over one communicator (SURVEY.md section 5.8);
-the TPU-native layout instead makes the network hierarchy explicit in
-the mesh shape and puts each solver axis on the interconnect whose
-traffic it generates:
+An ensemble of PDE solves has two kinds of parallelism with very
+different traffic, and the mesh names them after the algorithm:
 
-* **ensemble members -> the outer ("dcn") axis.**  Members never
-  exchange state; the ONLY cross-member traffic an ensemble solve
-  generates is nothing at all (each member carries its own error norm
-  and controller), so the slow links see zero solver bytes.
-* **PDE/state grid -> the inner ("ici") axis.**  Every RHS evaluation
+* **ensemble members -> the outer ("members") axis.**  Members never
+  exchange state: each carries its own error norm and controller, so a
+  solve sends no bytes along this axis.
+* **PDE/state grid -> the inner ("space") axis.**  Every RHS evaluation
   exchanges stencil halos, and every error norm is an all-reduce over
-  the state axis — both ride ICI every step.
+  the state axis.
 
-With that placement a 2-level solve communicates exactly like a
-single-host solve per member; DCN is used only to scatter initial
-states and gather results.  (If the state itself must span hosts,
-keep the *minor* grid dimension on ICI and the major one on DCN:
-halos are exchanged per step, but only across slab faces — one
-(face_area) message per step over DCN vs the per-element all-reduce
-GSPMD would otherwise route.)
-
-On this bench there is one process, so :func:`make_hierarchical_mesh`
-is exercised with virtual CPU devices (``per_host=...``); on a real
-multi-host pod it groups ``jax.devices()`` by ``process_index`` so the
-inner mesh axis is always host-local (the devices of one process are
-contiguous along it) and the outer axis crosses hosts.
+With several processes, :func:`make_hierarchical_mesh` groups
+``jax.devices()`` by ``process_index`` so that the inner axis is always
+process-local (the devices of one process are contiguous along it) and
+only the member axis crosses processes.  ``per_host=...`` builds the
+same grouping from one process's devices, as the tests do with virtual
+CPU devices.
 """
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 
-def make_hierarchical_mesh(axis_names=("dcn", "ici"), per_host=None,
+def make_hierarchical_mesh(axis_names=("members", "space"), per_host=None,
                            devices=None):
-    """Build a 2-level mesh: outer axis across hosts, inner within.
+    """Build a 2-level mesh: outer axis across processes, inner within.
 
     Parameters
     ----------
-    axis_names : (outer, inner) names; defaults to ("dcn", "ici").
+    axis_names : (outer, inner) names; defaults to ("members", "space").
     per_host : devices per inner axis.  Defaults to the actual
         devices-per-process grouping (``jax.local_device_count()``
         equivalent, derived from ``process_index``).  Pass explicitly
-        to simulate a multi-host topology on single-process virtual
-        devices (tests use 8 CPU devices with ``per_host=4`` for a
-        2-host x 4-chip pod).
+        to build the grouping from one process's devices (tests use 8
+        virtual CPU devices with ``per_host=4``: 2 groups of 4).
     devices : device list; defaults to ``jax.devices()``.
 
     Returns a ``Mesh`` of shape (n_hosts, per_host) whose rows are
-    process-contiguous, so ``PartitionSpec(inner)`` communication
-    stays on ICI and only ``PartitionSpec(outer)`` traffic crosses DCN.
+    process-contiguous, so ``PartitionSpec(inner)`` communication stays
+    within a process and only ``PartitionSpec(outer)`` crosses them.
     """
     devices = list(devices if devices is not None else jax.devices())
     if per_host is None:
@@ -77,8 +63,8 @@ def make_hierarchical_mesh(axis_names=("dcn", "ici"), per_host=None,
 
 def ensemble_pde_sharding(mesh, outer=None, inner=None):
     """The canonical 2-level placement for a ``(members, n_state)``
-    ensemble-of-PDEs array: members over the outer (DCN) axis, each
-    member's grid over the inner (ICI) axis."""
+    ensemble-of-PDEs array: members over the outer axis, each member's
+    grid over the inner axis."""
     outer = outer if outer is not None else mesh.axis_names[0]
     inner = inner if inner is not None else mesh.axis_names[1]
     return NamedSharding(mesh, PartitionSpec(outer, inner))

@@ -3,9 +3,9 @@
 The reference's scaling story for SSV2stab is huge semi-discretized
 parabolic PDEs (N = 40^3 x 2 states in the RKC paper reproduction,
 /root/reference/docs/Demo_SSV2stab.ipynb).  Here the state vector shards
-over TPU cores: the stencil RHSs below are written with plain jnp shift
+over devices: the stencil RHSs below are written with plain jnp shift
 ops so GSPMD partitions them automatically — neighbor slices become halo
-exchanges over ICI and the solver's RMS error norms become all-reduces.
+exchanges and the solver's RMS error norms become all-reduces.
 No hand-written collectives are required on the compute path; the mesh
 and sharding annotations are the entire "communication backend"
 (SURVEY.md section 5.8).

@@ -25,6 +25,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from .core.numerics import matmul
 
 SensitivityOutput = namedtuple("ForwardSensitivityOutput",
                                "sensf yf sol")
@@ -89,7 +90,7 @@ def sens_forward(fun, t_span, y0, jac=None, dfdp=None, dy0dp=None, p=(),
             # s: (Np, Ny) rows = per-parameter sensitivities
             J = jnp.asarray(jac_e(t, y))
             D = jnp.asarray(dfdp_e(t, y))       # (Ny, Np)
-            return s @ J.T + D.T
+            return matmul(s, J.T) + D.T
     else:
         def sens_rhs(t, y, s):
             eye = jnp.eye(Np)
@@ -214,8 +215,8 @@ def sens_adjoint_end(fun, t_span, y0, jac=None, dfdp=None, dy0dp=None,
         def fun_bw(t, z):
             mu = z[:Ny]
             y = interp(t)
-            dmu = -(jnp.asarray(jac_e(t, y)).T @ mu)
-            dxi = jnp.asarray(dfdp_e(t, y)).T @ mu
+            dmu = -matmul(jnp.asarray(jac_e(t, y)).T, mu)
+            dxi = matmul(jnp.asarray(dfdp_e(t, y)).T, mu)
             return jnp.concatenate([dmu, dxi])
     else:
         def fun_bw(t, z):

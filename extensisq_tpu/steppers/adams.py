@@ -1,6 +1,6 @@
 """SWAG: variable-order Adams-Bashforth-Moulton PECE stepper.
 
-TPU-native rewrite of the reference's SLATEC DDEABM/dsteps.f translation
+JAX-native rewrite of the reference's SLATEC DDEABM/dsteps.f translation
 (/root/reference/extensisq/shampine.py:99-480).  The dsteps machinery is
 the most state-entangled code in the reference: variable order k <= 12,
 scaled divided differences ``phi``, and coefficient recurrences over
@@ -12,6 +12,12 @@ beta/sig) are masked cumprods, the sequential v/w/g recurrences are
 ``lax.fori_loop``s over the static bound with per-iteration activity
 masks.  That makes the whole stepper one jittable pure function —
 variable order included — so Adams ensembles vmap like everything else.
+
+The small helpers below (int32-expanded masks, boolean-algebra selects,
+unrolled cumprod/cumsum, one-hot take/put) were first written so that
+the stepper could be traced inside a kernel that lowered neither bool
+broadcasts nor gathers.  They are value-identical to the plain jnp
+forms and fuse well under XLA, so they stayed.
 """
 from typing import Any, NamedTuple
 
@@ -21,7 +27,8 @@ import numpy as np
 
 from .._config import (RUNNING, FINISHED, TOO_SMALL_STEP, TOL_TOO_TIGHT)
 from ..core.hstart import h_start
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             einsum)
 
 K_MAX_LIMIT = 12
 
@@ -31,27 +38,16 @@ _GSTR = np.array([0.5, 0.0833, 0.0417, 0.0264, 0.0188, 0.0143, 0.0114,
 
 
 def _mask2(mask, n):
-    """(rows,) bool mask -> (rows, n) bool via int32.
-
-    A direct ``mask[:, None]`` broadcast expands an i1 vector over a
-    minor dim, which Mosaic cannot lower ("insertion of minor dim that
-    is not a no-op only supported for 32-bit types"); the i32 detour is
-    value-identical and Mosaic-safe, so the stepper traces inside the
-    fused kernel (ops/fused_adams.py)."""
+    """(rows,) bool mask -> (rows, n) bool via int32 (value-identical
+    to ``mask[:, None]`` broadcast)."""
     return (mask.astype(jnp.int32)[:, None]
             + jnp.zeros((1, n), jnp.int32)) != 0
 
 
 def _where(c, a, b):
-    """Mosaic-safe ``jnp.where``.
-
-    Under the fused kernel's double vmap, a where whose condition has
-    fewer dims than its operands (e.g. a per-member scalar flag
-    selecting (k_max,) coefficient vectors) broadcasts an i1 array —
-    which Mosaic cannot lower.  Expand the condition through int32 to
-    the full output shape first; route bool-valued selects through
-    boolean algebra (no i1 selects either).  Value-identical to
-    jnp.where everywhere."""
+    """``jnp.where`` with the condition expanded through int32 to the
+    full output shape, and bool-valued selects routed through boolean
+    algebra.  Value-identical to jnp.where everywhere."""
     a_arr = jnp.asarray(a)
     b_arr = jnp.asarray(b)
     shp = jnp.broadcast_shapes(jnp.shape(c), a_arr.shape, b_arr.shape)
@@ -64,8 +60,8 @@ def _where(c, a, b):
 
 
 def _band(*ms):
-    """Elementwise AND of bool masks with MIXED shapes, Mosaic-safe:
-    broadcasting happens in int32 (Mosaic cannot broadcast i1)."""
+    """Elementwise AND of bool masks with MIXED shapes; broadcasting
+    happens in int32."""
     shp = jnp.broadcast_shapes(*[jnp.shape(m) for m in ms])
     acc = None
     for m in ms:
@@ -77,9 +73,8 @@ def _band(*ms):
 def _bwhere(c, a, b):
     """``jnp.where`` for BOOL operands as pure boolean algebra.
 
-    Mosaic cannot lower selects on i1 vectors; (c & a) | (~c & b) is
-    value-identical and made of plain mask ops, so the stepper traces
-    inside the fused kernel (ops/fused_adams.py)."""
+    (c & a) | (~c & b) is value-identical and made of plain mask
+    ops."""
     a = jnp.asarray(a, bool)
     b = jnp.asarray(b, bool)
     return (c & a) | (~c & b)
@@ -90,11 +85,8 @@ def _cumprod(x):
 
     The leading axis is the tiny static k_max bound; unrolling gives a
     deterministic sequential evaluation order (jnp.cumprod may lower to
-    a log-step scan) and — critically — lowers to plain multiplies and
-    static slices that Pallas/Mosaic accepts, so the same stepper code
-    traces inside the fused kernel (ops/fused_adams.py).  jnp.split is
-    used instead of row indexing: under the kernel's double vmap the
-    arrays are 4-D and Mosaic only lowers 2-D gathers."""
+    a log-step scan) from plain multiplies and static slices (jnp.split
+    rather than row indexing, so no gathers)."""
     parts = jnp.split(x, x.shape[0], axis=0)       # (1, ...) slices
     rows = [parts[0]]
     for i in range(1, len(parts)):
@@ -375,7 +367,7 @@ class AdamsStepper:
 
         # sequential diagonal update: j = jv .. nsm1-1 (shampine.py:295-299)
         # unrolled (km is static and small): straight-line vector code
-        # beats a lax loop on TPU for these tiny trip counts
+        # for these tiny trip counts
         for j in range(km):
             active = raised & (j >= jv) & (j < nsm1)
             i = jnp.clip(km1 - j, 0, km - 1)
@@ -427,9 +419,8 @@ class AdamsStepper:
             w_shift = jnp.concatenate([w[1:], jnp.zeros(1, w.dtype)])
             w = _where(_band(idx < limit2, active),
                           w - alpha[min(i, km - 1)] * w_shift, w)
-            # where-based static write: .at[].set lowers to a scatter
-            # primitive, which Pallas TPU cannot lower (fused_adams
-            # traces this function); arithmetic-identical
+            # where-based static write instead of an .at[].set scatter;
+            # arithmetic-identical
             g = _put(g, min(i + 1, km),
                      _where(active, w[0], g[min(i + 1, km)]))
 
@@ -477,7 +468,7 @@ class AdamsStepper:
         phi = _put(phi, jnp.clip(kp1, 0, km + 1), phi_k)
         phi = _put(phi, jnp.clip(k, 0, km + 1), jnp.zeros_like(phi_k))
         gw = _where(idx_r < k, g_ext, 0.0)
-        p = h * jnp.einsum("s,sn->n", gw.astype(self.real_dtype),
+        p = h * einsum("s,sn->n", gw.astype(self.real_dtype),
                            phi.astype(self.dtype)) + y0
         # reverse cumulative sum over rows < k
         masked = _where(_mask2(idx_r < k, phi.shape[1]), phi,
@@ -811,10 +802,8 @@ class AdamsStepper:
             knew=state.k, nfev=state.nfev, nfailed=state.nfailed)
 
         # attempt + explicit per-leaf merge.  (lax.cond batches to a
-        # select over the whole carry — including its BOOL leaves,
-        # which Mosaic cannot select on inside the fused kernel; the
-        # merge is value-identical and routes bool leaves through
-        # boolean algebra.)
+        # select over the whole carry; the merge is value-identical and
+        # routes bool leaves through boolean algebra.)
         do = (~c0.success) & (c0.status == RUNNING)
         c1 = self._attempt(params, state, min_step, c0)
         c = jax.tree.map(

@@ -14,6 +14,7 @@ interpolant (shampine.py:590-612).
 """
 import jax
 import jax.numpy as jnp
+from ..core.numerics import einsum
 
 
 def _shift_up(c):
@@ -100,7 +101,7 @@ def dintp_coefficients(stepper, state):
     phi = state.phi[:km + 1]         # rows 0..kold used (others masked)
     phi_m = jnp.where((midx <= kold)[:, None], phi, 0.0)
     terms = dG - gdif[:, None] * sigma[None, :]       # (km+1, D)
-    Q_full = h * jnp.einsum("sn,sd->nd", phi_m.astype(state.y.dtype),
+    Q_full = h * einsum("sn,sd->nd", phi_m.astype(state.y.dtype),
                             terms.astype(real))
     Q_full = Q_full + (state.y - state.y_old)[:, None] * sigma[None, :]
 

@@ -17,7 +17,8 @@ import numpy as np
 
 from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from ..core.hstart import h_start
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             matmul)
 from .erk import _weighted_sum
 
 SAFETY = 0.9
@@ -429,7 +430,7 @@ class CKdiscStepper:
         from ..core.interpolate import hermite_cubic_coefficients
         h = state.h_previous
         P = np.asarray(self.tab.P)
-        Qp = (state.K.T @ jnp.asarray(P)) * h
+        Qp = matmul(state.K.T, jnp.asarray(P)) * h
         Qc = hermite_cubic_coefficients(h, state.y_old, state.y,
                                         state.K[0], state.K[self.s])
         Qc = jnp.pad(Qc, ((0, 0), (0, Qp.shape[1] - Qc.shape[1])))

@@ -1,6 +1,6 @@
 """Explicit embedded Runge-Kutta stepper, jit/vmap-native.
 
-TPU-first redesign of the reference's ``RungeKutta._step_impl``
+Device-first redesign of the reference's ``RungeKutta._step_impl``
 (/root/reference/extensisq/common.py:222-368) and the two-phase variants
 (bogacki.py:238-346, calvo.py:152-261):
 
@@ -25,7 +25,7 @@ from .._config import RUNNING, FINISHED, TOO_SMALL_STEP, OVERFLOW
 from ..core.controller import (resolve_controller, erk_accept_update,
                                reject_factor)
 from ..core.hstart import h_start
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import calculate_scale, norm, dtype_constants, matmul
 
 
 class ERKState(NamedTuple):
@@ -103,10 +103,18 @@ class ERKStepper:
         self.error_exponent = -1.0 / (err_order + 1)
         self.cc = resolve_controller(sc_params, tableau.sc_params,
                                      self.error_exponent)
-        self.A = np.asarray(tableau.A)
-        self.B = np.asarray(tableau.B)
-        self.C = np.asarray(tableau.C)
-        self.E = np.asarray(tableau.E)
+        # tables in real_dtype so float32 states do not promote to
+        # float64 (a no-op for float64 solves)
+        rd = self.real_dtype
+        self.A = np.asarray(tableau.A, rd)
+        self.B = np.asarray(tableau.B, rd)
+        self.C = np.asarray(tableau.C, rd)
+        self.E = np.asarray(tableau.E, rd)
+        # two-phase error test (BS5, CFMR7osc); RKN tableaux have none
+        E_pre = getattr(tableau, "E_pre", None)
+        self.E_pre = None if E_pre is None else np.asarray(E_pre, rd)
+        self.B_pre = (None if E_pre is None
+                      else np.asarray(tableau.B_pre, rd))
         self.fsal = tableau.fsal
         self.s = tableau.n_stages
         self.options = dict(options or {})
@@ -128,7 +136,7 @@ class ERKStepper:
                 jnp.abs(params.t_bound - t0), params.max_step)
             h_abs = jnp.abs(h_start(
                 self.fun, t0, b, y0, f0, self.tab.order_secondary,
-                params.rtol, params.atol))
+                params.rtol, params.atol)).astype(self.real_dtype)
             nfev += 1 + min(self.n + 1, 3)
         else:
             h_abs = jnp.asarray(first_step, self.real_dtype)
@@ -181,25 +189,31 @@ class ERKStepper:
         h_abs = jnp.where(split, jnp.maximum(0.5 * d, min_step),
                           jnp.where(d <= h_abs, d, h_abs))
         standard_sc = standard_sc | split
-        return h_abs, min_step, standard_sc
+        # t_bound/max_step are strong float64: keep the carried step
+        # size in the state's real dtype
+        return (h_abs.astype(self.real_dtype),
+                min_step.astype(self.real_dtype), standard_sc)
 
     # -- one attempt ---------------------------------------------------------
 
     def _attempt(self, params, t, y, f, state, c):
-        h = c.h_abs * params.direction
+        rd = self.real_dtype
+        params = params._replace(rtol=jnp.asarray(params.rtol, rd),
+                                 atol=jnp.asarray(params.atol, rd))
+        h = c.h_abs * jnp.asarray(params.direction, rd)
         zero_y = jnp.zeros_like(f)
         K_shape = (self.s + 1,) + f.shape
         nfev = c.nfev
 
-        if getattr(self.tab, "E_pre", None) is not None:
+        if self.E_pre is not None:
             npre = self.tab.n_pre
             K_rows = [f]
             nfev += self._run_stages(t, y, h, 1, npre, K_rows)
             # pre-error check with premature solution as scale weight
             # (bogacki.py:340-346, calvo.py:255-261)
-            y_pre = y + h * _weighted_sum(K_rows[:npre], self.tab.B_pre)
+            y_pre = y + h * _weighted_sum(K_rows[:npre], self.B_pre)
             scale_pre = calculate_scale(params.atol, params.rtol, y, y_pre)
-            err_pre = h * _weighted_sum(K_rows[:npre], self.tab.E_pre)
+            err_pre = h * _weighted_sum(K_rows[:npre], self.E_pre)
             pre_norm = norm(err_pre / scale_pre)
             pre_ok = ~(pre_norm > 1.0)
             K_part = jnp.stack(K_rows)
@@ -326,7 +340,8 @@ class ERKStepper:
         # with equality only on the final step
         d = jnp.abs(params.t_bound - t)
         is_last = ok & (jnp.abs(c.h_used) >= d)
-        t_new = jnp.where(is_last, params.t_bound, t + c.h_used)
+        t_new = jnp.where(is_last, jnp.asarray(params.t_bound, t.dtype),
+                          t + c.h_used)
 
         # non-FSAL endpoint evaluation for interpolation and next step
         # (common.py:289-291)
@@ -390,7 +405,7 @@ class ERKStepper:
         Semantically equivalent to :meth:`step`'s nested accept/reject
         loop, but flattened so the device driver can run a single
         unnested ``lax.while_loop`` over attempts — far fewer kernels
-        per iteration on TPU.  Returns (state', aux', accepted).
+        per iteration.  Returns (state', aux', accepted).
         """
         fresh, min_step_c, rejected = aux
         t, y, f = state.t, state.y, state.f
@@ -432,7 +447,8 @@ class ERKStepper:
 
         d = jnp.abs(params.t_bound - t)
         is_last = ok & (jnp.abs(c.h_used) >= d)
-        t_new = jnp.where(is_last, params.t_bound, t + c.h_used)
+        t_new = jnp.where(is_last, jnp.asarray(params.t_bound, t.dtype),
+                          t + c.h_used)
 
         if self.fsal:
             K_final = c.K
@@ -491,7 +507,7 @@ class ERKStepper:
         trajectory recording (no extra RHS evals)."""
         h = state.h_previous
         if self.tab.P is not None:
-            return (state.K.T @ jnp.asarray(np.asarray(self.tab.P))) * h
+            return matmul(state.K.T, jnp.asarray(np.asarray(self.tab.P))) * h
         from ..core.interpolate import hermite_cubic_coefficients
         return hermite_cubic_coefficients(h, state.y_old, state.y,
                                           state.f_old, state.f)
@@ -519,7 +535,7 @@ class ERKStepper:
                 Q = hermite_cubic_coefficients(
                     h, state.y_old, state.y, state.f_old, state.f)
                 return [(state.t_old, h, state.y_old, Q)], 0
-            Q = (state.K.T @ jnp.asarray(self.tab.P)) * h
+            Q = matmul(state.K.T, jnp.asarray(self.tab.P)) * h
             return [(state.t_old, h, state.y_old, Q)], 0
 
         # extra-stage interpolant
@@ -535,7 +551,7 @@ class ERKStepper:
             rows.append(self.fun(t_old + cx * h, y_old + dy))
             nfev += 1
         K_ext = jnp.stack(rows)
-        Q = (K_ext.T @ jnp.asarray(P)) * h
+        Q = matmul(K_ext.T, jnp.asarray(P)) * h
         if spec.get("anchor") == "end":
             # RKSuite convention: polynomial looks back from the step end
             # (bogacki.py:390-393)

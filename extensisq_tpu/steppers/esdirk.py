@@ -1,6 +1,6 @@
 """ESDIRK implicit stepper with index-1 DAE (mass matrix) support.
 
-TPU-native redesign of the reference ESDIRK base class
+JAX-native redesign of the reference ESDIRK base class
 (/root/reference/extensisq/common.py:1616-2255):
 
 * modified-Newton stage solves are bounded ``lax.while_loop``s with the
@@ -35,7 +35,8 @@ from ..core.controller import (resolve_controller, esdirk_accept_update,
                                reject_factor)
 from ..core.hstart import h_start
 from ..core.linalg import gauss_solve
-from ..core.numerics import calculate_scale, norm, dtype_constants
+from ..core.numerics import (calculate_scale, norm, dtype_constants,
+                             matmul)
 
 
 class ESDIRKState(NamedTuple):
@@ -152,7 +153,7 @@ class ESDIRKStepper:
         # ``bands=(kl, ku)`` (or ``bands=True`` with ``jac_sparsity``)
         # switches the Newton linear algebra to block-tridiagonal
         # cyclic reduction (core/banded.py) — O(n b^2) per solve in
-        # log2(n/b) batched levels, full working precision on TPU.
+        # log2(n/b) batched levels, full working precision.
         self.banded = bands is not None
         self.perm = None
         self.iperm = None
@@ -173,7 +174,7 @@ class ESDIRKStepper:
                 if want_rcm:
                     # bandwidth-reducing reordering: irregular
                     # patterns ride the BCR after a host-side reverse
-                    # Cuthill-McKee permutation (the TPU-native
+                    # Cuthill-McKee permutation (the device-native
                     # answer to the reference's any-sparsity splu,
                     # common.py:1756-1776).  The permutation is an
                     # internal linear-algebra detail: the RHS, states,
@@ -340,7 +341,7 @@ class ESDIRKStepper:
                     jnp.asarray(self._M_band, self.dtype), self.kl,
                     self.ku, z)
             return jnp.asarray(self.mvec, self.dtype) * z
-        return jnp.asarray(self.M) @ z
+        return matmul(jnp.asarray(self.M), z)
 
     def _sc_vec(self, h):
         """Diagonal of U diag(sc) U^T for diagonal M: the 1/(h d)
@@ -360,20 +361,7 @@ class ESDIRKStepper:
         sc = jnp.concatenate([
             jnp.ones(self.n - self.nAE, self.real_dtype),
             jnp.full((self.nAE,), 1.0, self.real_dtype) / (h * self.d)])
-        return U @ (sc * (U.T @ v))
-
-    @property
-    def _lu_dtype(self):
-        """Factorization dtype.  The TPU XLA backend implements
-        LuDecomposition only for F32/C64; that is fine — in modified
-        Newton the LU is a preconditioner, so a lower-precision factor
-        only costs (at most) extra iterations while residuals stay in
-        the working precision."""
-        if jax.default_backend() != "tpu":
-            return self.dtype
-        return (np.dtype(np.complex64)
-                if np.issubdtype(self.dtype, np.complexfloating)
-                else np.dtype(np.float32))
+        return matmul(U, sc * matmul(U.T, v))
 
     def _factor(self, h, J):
         """LU of Sc (M - h d J)."""
@@ -412,8 +400,8 @@ class ESDIRKStepper:
                 jnp.ones(self.n - self.nAE, self.real_dtype),
                 jnp.full((self.nAE,), 1.0, self.real_dtype)
                 / (h * self.d)])
-            W = U @ (sc[:, None] * (U.T @ W))
-        lu, piv = jax.scipy.linalg.lu_factor(W.astype(self._lu_dtype))
+            W = matmul(U, sc[:, None] * matmul(U.T, W))
+        lu, piv = jax.scipy.linalg.lu_factor(W)
         return lu, piv
 
     def _solve(self, LU, piv, b):
@@ -426,9 +414,7 @@ class ESDIRKStepper:
                     self.ku)[self.iperm]
             return self._bd.banded_solve(LU, b, self.n, self.kl,
                                          self.ku)
-        x = jax.scipy.linalg.lu_solve((LU, piv),
-                                      b.astype(self._lu_dtype))
-        return x.astype(self.dtype)
+        return jax.scipy.linalg.lu_solve((LU, piv), b)
 
     def _jac_dense(self):
         """A dense-J view of the (possibly banded) Jacobian for the
@@ -481,16 +467,16 @@ class ESDIRKStepper:
         jac = self._jac_dense()
 
         f0 = self.fun(t0, y0)
-        z0 = Vh @ y0
+        z0 = matmul(Vh, y0)
         u = z0[:nd]
 
         def G(t, y):
-            return U.T @ jac(t, y) @ Vh.T
+            return matmul(matmul(U.T, jac(t, y)), Vh.T)
 
         def newton_body(i, carry):
             v, _ = carry
-            y = Vh.T @ jnp.concatenate([u, v])
-            gv = (U.T @ self.fun(t0, y))[nd:]
+            y = matmul(Vh.T, jnp.concatenate([u, v]))
+            gv = matmul(U.T, self.fun(t0, y))[nd:]
             Gvv = G(t0, y)[nd:, nd:]
             dv = gauss_solve(Gvv, gv)
             return v - dv, jnp.max(jnp.abs(dv))
@@ -498,7 +484,7 @@ class ESDIRKStepper:
         v0 = z0[nd:]
         v, dvn = jax.lax.fori_loop(0, 10, newton_body,
                                    (v0, jnp.asarray(jnp.inf)))
-        y = Vh.T @ jnp.concatenate([u, v])
+        y = matmul(Vh.T, jnp.concatenate([u, v]))
         f = self.fun(t0, y)
         J = jac(t0, y)
 
@@ -507,17 +493,17 @@ class ESDIRKStepper:
             jnp.abs(params.t_bound - t0), params.max_step)
         fdot = h_start(self.fun, t0, b, y, f, None, params.rtol,
                        params.atol, returnT=True)
-        gdot = U.T @ fdot
-        g = U.T @ f
-        Gm = U.T @ J @ Vh.T
+        gdot = matmul(U.T, fdot)
+        g = matmul(U.T, f)
+        Gm = matmul(matmul(U.T, J), Vh.T)
         Guu, Guv = Gm[:nd, :nd], Gm[:nd, nd:]
         Gvu, Gvv = Gm[nd:, :nd], Gm[nd:, nd:]
         udot = g[:nd] / sv[:nd]
-        vdot = -gauss_solve(Gvv, gdot[nd:] + Gvu @ udot)
-        ydot = Vh.T @ jnp.concatenate([udot, vdot])
+        vdot = -gauss_solve(Gvv, gdot[nd:] + matmul(Gvu, udot))
+        ydot = matmul(Vh.T, jnp.concatenate([udot, vdot]))
         # reduced ODE data for h_start (common.py:1913-1916)
-        S = Guv @ gauss_solve(Gvv, Gvu)
-        Tr = (gdot[:nd] + Guv @ vdot) / sv[:nd]
+        S = matmul(Guv, gauss_solve(Gvv, Gvu))
+        Tr = (gdot[:nd] + matmul(Guv, vdot)) / sv[:nd]
         Jr = (Guu + S) / sv[:nd, None]
         return y, ydot, J, {"y": u, "yprime": udot, "J": Jr, "T": Tr}
 
@@ -591,7 +577,7 @@ class ESDIRKStepper:
                                            self.dtype)
             piv0 = jnp.zeros((0,), jnp.int32)
         else:
-            LU0 = jnp.zeros((self.n, self.n), self._lu_dtype)
+            LU0 = jnp.zeros((self.n, self.n), self.dtype)
             piv0 = jnp.zeros((self.n,), jnp.int32)
         return ESDIRKState(
             t=t0, y=y0, yp=yp0, h_abs=h_abs,
@@ -1037,7 +1023,7 @@ class ESDIRKStepper:
         h = state.h_previous
         if self.tab.P is not None:
             P = np.asarray(self.tab.P)
-            return (state.K.T @ jnp.asarray(P)) * h
+            return matmul(state.K.T, jnp.asarray(P)) * h
         from ..core.interpolate import hermite_cubic_coefficients
         return hermite_cubic_coefficients(h, state.y_old, state.y,
                                           state.yp_old, state.yp)
@@ -1069,5 +1055,5 @@ class ESDIRKStepper:
             Q = hermite_cubic_coefficients(h, state.y_old, state.y,
                                            state.yp_old, state.yp)
             return [(state.t_old, h, state.y_old, Q)], 0
-        Q = (state.K.T @ jnp.asarray(P)) * h
+        Q = matmul(state.K.T, jnp.asarray(P)) * h
         return [(state.t_old, h, state.y_old, Q)], 0

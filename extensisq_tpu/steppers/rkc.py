@@ -1,10 +1,10 @@
 """SSV2stab: stabilized second-order Runge-Kutta-Chebyshev stepper.
 
-TPU-native rewrite of the reference's translation of netlib rkc.f
+JAX-native rewrite of the reference's translation of netlib rkc.f
 (/root/reference/extensisq/sommeijer.py).  The per-step stage count m
 stretches the real-axis stability interval quadratically, making this
 the method for large semi-discretized parabolic PDEs — exactly the
-state vectors that shard across TPU cores (SURVEY.md section 2.4).
+state vectors that shard across devices (SURVEY.md section 2.4).
 
 Design:
 * the Chebyshev three-term stage recurrence is a ``lax.fori_loop`` with

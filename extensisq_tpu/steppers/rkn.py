@@ -14,6 +14,7 @@ from ..core.hstart import h_start
 from ..core.interpolate import (quintic_hermite_coefficients,
                                 nystrom_coefficients)
 from .erk import ERKStepper, ERKState, _weighted_sum
+from ..core.numerics import matmul
 
 
 class RKNStepper(ERKStepper):
@@ -154,8 +155,8 @@ class RKNStepper(ERKStepper):
     def record_coefficients(self, state):
         h = state.h_previous
         if self.tab.P is not None and self.tab.Pp is not None:
-            Q = state.K.T @ jnp.asarray(np.asarray(self.tab.P))
-            Qp = state.K.T @ jnp.asarray(np.asarray(self.tab.Pp))
+            Q = matmul(state.K.T, jnp.asarray(np.asarray(self.tab.P)))
+            Qp = matmul(state.K.T, jnp.asarray(np.asarray(self.tab.Pp)))
             return nystrom_coefficients(h, state.y_old, Q, Qp)
         return quintic_hermite_coefficients(
             h, state.y_old, state.y, state.f_old, state.f)
@@ -169,8 +170,8 @@ class RKNStepper(ERKStepper):
             spec = self.tab.interpolants.get(name)
         if spec is None:
             if self.tab.P is not None and self.tab.Pp is not None:
-                Q = state.K.T @ jnp.asarray(np.asarray(self.tab.P))
-                Qp = state.K.T @ jnp.asarray(np.asarray(self.tab.Pp))
+                Q = matmul(state.K.T, jnp.asarray(np.asarray(self.tab.P)))
+                Qp = matmul(state.K.T, jnp.asarray(np.asarray(self.tab.Pp)))
                 Qall = nystrom_coefficients(h, state.y_old, Q, Qp)
                 return [(state.t_old, h, state.y_old, Qall)], 0
             # free quintic Hermite (common.py:1528-1578)
@@ -199,7 +200,7 @@ class RKNStepper(ERKStepper):
             rows.append(self.afun(t_old + dt, y_old + dy))
             nfev += 1
         K_ext = jnp.stack(rows)
-        Q = K_ext.T @ jnp.asarray(P)
-        Qp = K_ext.T @ jnp.asarray(Pp)
+        Q = matmul(K_ext.T, jnp.asarray(P))
+        Qp = matmul(K_ext.T, jnp.asarray(Pp))
         Qall = nystrom_coefficients(h, y_old, Q, Qp)
         return [(t_old, h, y_old, Qall)], nfev

@@ -1,6 +1,6 @@
 """Banded Newton linear algebra (block-tridiagonal cyclic reduction).
 
-TPU-native counterpart of the reference's sparse SuperLU route
+Device-native counterpart of the reference's sparse SuperLU route
 (/root/reference/extensisq/common.py:1756-1776), exercised there by
 the Medazko problem (/root/reference/tests/test_ivp.py:262-291).  The
 contract tested here: switching ESDIRK to ``bands=`` changes the
@@ -235,7 +235,7 @@ def test_banded_nondiagonal_fem_mass():
     rides banded mode: W = M - h d J keeps the union bandwidths, and
     counters match the dense-path solve exactly (the reference path:
     common.py:1778-1821 handles any M; here banded+nonsingular is the
-    TPU-native cell, singular stays dense)."""
+    banded cell, singular stays dense)."""
     n = 40
     x = np.arange(n)
     # 1-D FEM lumped-ish mass: tridiag(1/6, 2/3, 1/6)
@@ -280,7 +280,7 @@ def test_rcm_irregular_counts_match_dense():
     """bands='rcm': an IRREGULAR pattern (randomly relabeled diffusion
     chain, natural bandwidths ~n) auto-reorders to a narrow band and
     matches the dense solve's counters exactly — the reference's
-    any-sparsity splu route (common.py:1756-1776) TPU-natively."""
+    any-sparsity splu route (common.py:1756-1776) on device."""
     n = 60
     rng = np.random.RandomState(3)
     sig = np.asarray(rng.permutation(n))

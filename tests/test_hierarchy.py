@@ -1,13 +1,11 @@
-"""Two-level (DCN x ICI) hierarchical-mesh placement (SURVEY.md §5.8).
+"""Two-level (members x space) mesh placement (SURVEY.md §5.8).
 
-The reference scales its RKC workloads with flat MPI over a single
-communicator; the TPU-native design makes the network hierarchy
-explicit: ensemble members on the slow outer axis (zero cross-member
-solver traffic), the PDE state grid on the fast inner axis (halos +
-norm all-reduces every step).  These tests exercise the helper on the
-8 virtual CPU devices as a simulated 2-host x 4-chip pod and pin that
-a full adaptive ensemble-of-PDEs solve under the 2-level sharding is
-numerically identical to the unsharded run.
+Ensemble members go on the outer axis (no cross-member solver
+traffic), the PDE state grid on the inner axis (halos + norm
+all-reduces every step).  These tests exercise the helper on the 8
+virtual CPU devices as 2 groups of 4 and pin that a full adaptive
+ensemble-of-PDEs solve under the 2-level sharding is numerically
+identical to the unsharded run.
 """
 import jax
 import jax.numpy as jnp
@@ -27,9 +25,9 @@ needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
 @needs8
 def test_mesh_shape_and_axes():
     mesh = make_hierarchical_mesh(per_host=4)
-    assert mesh.axis_names == ("dcn", "ici")
+    assert mesh.axis_names == ("members", "space")
     assert mesh.devices.shape == (2, 4)
-    # rows are contiguous device groups (host-local on a real pod)
+    # rows are contiguous device groups (process-local)
     flat = [d.id for d in mesh.devices.ravel()]
     assert flat == sorted(flat)
 
@@ -54,7 +52,7 @@ def test_ensemble_pde_solve_two_level():
     placement is a layout, not a numerical change."""
     mesh = make_hierarchical_mesh(per_host=4)
     sharding = ensemble_pde_sharding(mesh)
-    assert sharding.spec == P("dcn", "ici")
+    assert sharding.spec == P("members", "space")
 
     n = 256
     rhs = heat_1d_rhs(kappa=1e-3, n=n)

@@ -3,7 +3,7 @@ conformance for implicit methods (test_ivp.py:262-291).
 
 The reference uses a sparse finite-difference Jacobian; here the dense
 Jacobian comes from jax.jacfwd (one batched JVP sweep — no sparsity
-bookkeeping needed on TPU)."""
+bookkeeping needed on device)."""
 import numpy as np
 import pytest
 

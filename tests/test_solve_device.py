@@ -265,3 +265,24 @@ def test_solve_windowed_ensemble_bitexact():
                                   np.asarray(ref.nsteps))
     np.testing.assert_array_equal(np.asarray(out.nfev),
                                   np.asarray(ref.nfev))
+
+
+@pytest.mark.parametrize("name", ["BS5", "Ts5", "CK5", "Me4", "Pr7", "Pr8",
+                                  "Pr9", "CFMR7osc"])
+def test_float32_states_stay_float32(name):
+    """A float32 ensemble runs in float32 through every explicit pair
+    (the two-phase BS5/CFMR7osc error test included) and lands within
+    tolerance of the float64 solve."""
+    from extensisq_tpu import METHODS_BY_NAME
+
+    def vdp(t, y):
+        return (y[1], 2.0 * (1 - y[0] ** 2) * y[1] - y[0])
+
+    Y0 = jnp.stack([jnp.linspace(1.5, 2.5, 8), jnp.zeros(8)], axis=1)
+    kw = dict(method=METHODS_BY_NAME[name], rtol=1e-4, atol=1e-7)
+    run = jax.jit(lambda Y: solve_ensemble(vdp, (0.0, 4.0), Y, **kw))
+    out32 = run(Y0.astype(jnp.float32))
+    out64 = run(Y0)
+    assert out32.y.dtype == jnp.float32
+    assert bool(jnp.all(out32.status == 1))
+    assert float(jnp.max(jnp.abs(out32.y - out64.y))) < 1e-2

@@ -14,7 +14,7 @@ equality of steps / failed steps / f-evals / power-method evals / max
 stage count at every tolerance — the same criterion as
 validation/hosea_tables.py.  Exits nonzero on any mismatch.
 
-Run: python validation/rkc_tables.py [cpu|tpu]
+Run: python validation/rkc_tables.py [cpu]     (cpu: force the CPU backend)
 """
 import os
 import sys
